@@ -1,0 +1,13 @@
+"""DeepSeek-LLM 7B [arXiv:2401.02954] — llama-architecture dense."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=11008,
+    vocab_size=102400,
+))

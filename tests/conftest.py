@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running tier-1 test; CI runs these in a separate "
         "matrix leg (-m slow) so the fast leg stays under its timeout")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels run on the card "
+        "only); skips without one")
 
 
 @pytest.fixture(scope="session")
