@@ -7,8 +7,9 @@ What it does, failing (non-zero exit, no result line) on any error:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, and the build of every CUDA kernel of the serving
-   path from the sources in the checkout (``nvcc`` for ``sm_90a``, with
-   the ``-Xptxas -v`` register / shared-memory summary);
+   and training paths from the sources in the checkout (``nvcc`` for
+   ``sm_90a``, one process per source, with the ``-Xptxas -v`` register
+   / shared-memory summary);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the full-width ``internlm2-1.8b`` serving path:
    decode attention within a stated tolerance (GQA group 1/2/4, ring,
@@ -29,12 +30,36 @@ What it does, failing (non-zero exit, no result line) on any error:
    largest logit difference per step against a stated tolerance, in f32
    compute and in bf16 compute; then a ``torch.profiler`` window of
    steady full-width decode steps (wall vs device busy, top kernels);
-6. a ``kernels:`` summary and one JSON line with every kernel's numbers,
+6. training (the port's slice 2), ``internlm2-1.8b`` at full width:
+   masked Adam (f32 moments) and Q8 masked Adam against their plain
+   versions on the card (ragged sizes and the main path's leaf shapes;
+   f32 within 2 ulp, bf16 parameters within one bf16 ulp, Q8 codes and
+   scales bitwise), then their times over the main path's whole
+   12-leaf selection beside the bound, the plain version and
+   ``torch._fused_adam_``;
+7. the training main path: ``python -m repro_torch.launch.train --arch
+   internlm2-1.8b --reduce 0 --optimizer blockllm+q8 --batch 8 --seq 256
+   --steps 8`` (full width, full depth, random weights from a seed) with
+   the launch counts reset just before and read just after — the Q8
+   kernel must have launched; loss per step, step times, peak memory;
+8. through the API: ``blockllm`` with f32 moments and
+   ``fused_update="kernel"`` (the f32 kernel must launch), then full
+   ``adam`` at the same batch: the paper's memory comparison; then a
+   ``torch.profiler`` window of 2 steady ``blockllm`` steps;
+9. checkpoint -> crash -> resume -> export -> serve at full width with
+   the depth cut to 4 layers (full depth would write about 12 GB of npz
+   per checkpoint): the resumed run equals the uninterrupted one
+   bitwise, its exported BlockDelta tenant is served through
+   ``DecodeServer`` with kernel attention and gives the tokens of a
+   server whose base has the trained rows written in;
+10. a ``kernels:`` summary and one JSON line with every kernel's numbers,
    the card's name and power limit again, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  Long logs (ptxas output, the
-profile table) go to the ``OUT`` directory beside it.
+profile tables) go to the ``OUT`` directory beside it; checkpoints and
+the adapter registry (gigabytes) go to ``SCRATCH``, which ``.gitignore``
+lists, and are deleted at the end.
 """
 from __future__ import annotations
 
@@ -46,6 +71,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
+SCRATCH = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 ARCH = "internlm2-1.8b"
@@ -56,6 +82,11 @@ ATTN_BF16_ATOL = 2e-2     # bf16 output: one rounding step apart at |o| < 4
 LOGIT_F32_TOL = 2e-3      # f32 model: the two attentions differ in order only
 LOGIT_BF16_TOL = 0.25     # bf16 model: the full path rounds probabilities
                           # to bf16 before PV, the kernel keeps f32
+ADAM_F32_ULPS = 2         # masked Adam: the kernel and its plain version do
+ADAM_BF16_ULPS = 1        # the same IEEE ops in the same order (no FMA)
+SERVE_KERNELS = ("decode_attention", "scatter_swap")
+TRAIN_ARGV = ["--arch", ARCH, "--reduce", "0", "--optimizer", "blockllm+q8",
+              "--batch", "8", "--seq", "256", "--steps", "8"]
 
 
 def smi() -> str:
@@ -313,7 +344,7 @@ def serve_long_prompts(torch, np):
           f"{st['sched']['swaps']}, launches {launches}")
     if not all(r.done and len(r.out) == 32 for r in reqs):
         raise AssertionError("long-prompt serve left requests unfinished")
-    if not all(launches.values()):
+    if not all(launches[k] for k in SERVE_KERNELS):
         raise AssertionError(f"a kernel did not launch: {launches}")
     srv.restore_base()
     return srv
@@ -446,6 +477,511 @@ def profile_decode(torch, np):
     (OUT / "decode_profile.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
 
+# --------------------------------------------------------------------- #
+# phases 6-9: training (masked Adam, the BlockLLM trainers)
+# --------------------------------------------------------------------- #
+
+
+def ulps(torch, a, b) -> int:
+    """Largest distance in units of the last place (f32 or bf16)."""
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(bits).long() - b.view(bits).long()).abs().max())
+
+
+def selection_shapes(cfg, k):
+    """Leaf shapes of the main path's BlockLLM selection: K rows of each of
+    the 9 stacked leaves, plus the embed, head and final_norm units."""
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq, hkv = cfg.num_heads * cfg.resolved_head_dim, (
+        cfg.num_kv_heads * cfg.resolved_head_dim)
+    rows = {"ln1": (d,), "ln2": (d,), "wq": (d, hq), "wk": (d, hkv),
+            "wv": (d, hkv), "wo": (hq, d), "w_up": (d, f), "w_gate": (d, f),
+            "w_down": (f, d)}
+    out = {n: (k,) + shp for n, shp in rows.items()}
+    out.update(embed=(V, d), head=(d, V), final_norm=(d,))
+    return out
+
+
+def adam_inputs(torch, shape, dtype, seed, offset=0):
+    g = torch.Generator("cuda").manual_seed(seed)
+    n = 1
+    for x in shape:
+        n *= x
+
+    def mk():
+        return torch.randn(n + offset, generator=g,
+                           device="cuda")[offset:].view(shape)
+    p, gr = mk().to(dtype), (mk() * 0.01).to(dtype)
+    m = mk() * 1e-3
+    v = mk().abs_() * 1e-5
+    mask = torch.rand(shape, generator=g, device="cuda") > 0.875
+    return p, gr, m, v, mask
+
+
+def check_masked_adam(torch, ma, results):
+    """Both kernels against their plain versions: ragged and misaligned
+    sizes, and the main path's largest leaf shapes (a stacked leaf's 6
+    selected rows, the embedding table)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.runtime.compression import quantize_int8
+    cfg = get_config(ARCH)
+    shapes = selection_shapes(cfg, 6)
+    cases = [((100, 257), 0), ((4099,), 1), ((7,), 0),
+             (shapes["w_gate"], 0), (shapes["embed"], 0)]
+    scal = ma.scalars(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                      count=3, tau=0.7)
+    worst = {"masked_adam": 0.0, "masked_adam_q8": 0.0}
+    for shape, off in cases:
+        big = shape in (shapes["w_gate"], shapes["embed"])
+        for dt in ((torch.float32,) if big else
+                   (torch.float32, torch.bfloat16)):
+            for gate in ("mask", "none", "tau"):
+                p, g, m, v, mask = adam_inputs(torch, shape, dt, 11, off)
+                mk = mask if gate == "mask" else None
+                tau = gate == "tau"
+                # f32 moments
+                kp, km, kv = p.clone(), m.clone(), v.clone()
+                ma.masked_adam_cuda(kp, g, km, kv, mk, scal, use_tau=tau)
+                pp, pm, pv = p.clone(), m.clone(), v.clone()
+                ma.masked_adam_plain(pp, g, pm, pv, mk, scal, use_tau=tau)
+                torch.cuda.synchronize()
+                lim = ADAM_BF16_ULPS if dt == torch.bfloat16 else ADAM_F32_ULPS
+                u = (ulps(torch, kp, pp), ulps(torch, km, pm),
+                     ulps(torch, kv, pv))
+                err = (kp.float() - pp.float()).abs().max().item()
+                ok = u[0] <= lim and max(u[1:]) <= ADAM_F32_ULPS
+                print(f"masked_adam [{gate}] {tuple(shape)} "
+                      f"{str(dt)[6:]}{' misaligned' if off else ''}: ulps "
+                      f"p/m/v {u}, max|kernel-plain| p {err:.3g} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("masked_adam disagrees with its "
+                                         "plain version")
+                if big and dt == torch.float32:
+                    worst["masked_adam"] = max(worst["masked_adam"], err)
+                del kp, km, kv, pp, pm, pv
+                # Q8 moments
+                q = [t for pair in (quantize_int8(m), quantize_int8(v))
+                     for t in pair]
+                k8 = [p.clone()] + [t.clone() for t in q]
+                ma.masked_adam_q8_cuda(k8[0], g, *k8[1:], mk, scal,
+                                       use_tau=tau)
+                p8 = [p.clone()] + [t.clone() for t in q]
+                ma.masked_adam_q8_plain(p8[0], g, *p8[1:], mk, scal,
+                                        use_tau=tau)
+                torch.cuda.synchronize()
+                codes = (torch.equal(k8[1], p8[1])
+                         and torch.equal(k8[3], p8[3]))
+                scales = (torch.equal(k8[2].view(torch.int32),
+                                      p8[2].view(torch.int32))
+                          and torch.equal(k8[4].view(torch.int32),
+                                          p8[4].view(torch.int32)))
+                up = ulps(torch, k8[0], p8[0])
+                err = (k8[0].float() - p8[0].float()).abs().max().item()
+                ok = codes and scales and up <= lim
+                print(f"masked_adam_q8 [{gate}] {tuple(shape)} "
+                      f"{str(dt)[6:]}: codes bitwise {codes}, scales "
+                      f"bitwise {scales}, p ulps {up} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("masked_adam_q8 disagrees with its "
+                                         "plain version")
+                if big and dt == torch.float32:
+                    worst["masked_adam_q8"] = max(worst["masked_adam_q8"],
+                                                  err)
+                del k8, p8, q, p, g, m, v, mask
+    for name in worst:
+        results[name] = {"max_abs_err": worst[name]}
+    torch.cuda.empty_cache()
+
+
+def time_masked_adam(torch, ops, results):
+    """Device time of one optimizer step over the main path's whole
+    selection (12 leaves, 756.6 M elements): the kernels, their plain
+    versions, and ``torch._fused_adam_`` (Adam without a mask) as the
+    nearest one-call yardstick."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim.q8adam import quantize_tree
+    cfg = get_config(ARCH)
+    shapes = selection_shapes(cfg, 6)
+    n = sum(int(torch.Size(s).numel()) for s in shapes.values())
+    g = torch.Generator("cuda").manual_seed(12)
+    p = {k: torch.randn(s, generator=g, device="cuda") for k, s in
+         shapes.items()}
+    gr = {k: torch.randn(s, generator=g, device="cuda") * 0.01
+          for k, s in shapes.items()}
+    m = {k: torch.randn(s, generator=g, device="cuda") * 1e-3
+         for k, s in shapes.items()}
+    v = {k: torch.rand(s, generator=g, device="cuda") * 1e-5
+         for k, s in shapes.items()}
+    mask = {k: torch.rand(s, generator=g, device="cuda") > 0.875
+            for k, s in shapes.items()}
+    kw = dict(lr=1e-3, count=3, weight_decay=0.0)
+    f32 = {"kernel": lambda i: ops.masked_adam_tree(p, gr, m, v, mask,
+                                                    mode="kernel", **kw),
+           "plain": lambda i: ops.masked_adam_tree(p, gr, m, v, mask,
+                                                   mode="plain", **kw)}
+    steps = [torch.full((), 4.0, device="cuda") for _ in p]
+    args = [list(t.values()) for t in (p, gr, m, v)]
+    lib = (lambda i: torch._fused_adam_(
+        *args, [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0,
+        eps=1e-8, amsgrad=False, maximize=False))
+    ms = {"kernel": cuda_time_ms(f32["kernel"], 10),
+          "plain": cuda_time_ms(f32["plain"], 3),
+          "library": cuda_time_ms(lib, 10)}
+    ms["kernel2"] = cuda_time_ms(f32["kernel"], 10)
+    mq, ms_, vq, vs = (*quantize_tree(m), *quantize_tree(v))
+    del m, v, args
+    torch.cuda.empty_cache()
+    q8 = {"kernel": lambda i: ops.masked_adam_q8_tree(
+              p, gr, mq, ms_, vq, vs, mask, mode="kernel", **kw),
+          "plain": lambda i: ops.masked_adam_q8_tree(
+              p, gr, mq, ms_, vq, vs, mask, mode="plain", **kw)}
+    ms8 = {"kernel": cuda_time_ms(q8["kernel"], 10),
+           "plain": cuda_time_ms(q8["plain"], 3)}
+    ms8["kernel2"] = cuda_time_ms(q8["kernel"], 10)
+    # bounds: every input read once, every output written once
+    nb = n // 256 + len(shapes)                      # codec blocks, rounded up
+    f32_bytes = n * (4 * 4 + 1) + n * 3 * 4          # p g m v mask; p m v
+    q8_bytes = (n * (4 + 4 + 1 + 2) + nb * 8         # p g mask codes, scales
+                + n * (4 + 2) + nb * 8)              # p codes, scales
+    f32_ops, q8_ops = 16 * n, 22 * n                 # flops per element
+    for name, nbytes, nops, t, lib_ms in (
+            ("masked_adam", f32_bytes, f32_ops, ms, ms["library"]),
+            ("masked_adam_q8", q8_bytes, q8_ops, ms8, None)):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
+        results[name].update(
+            ms=t["kernel"], plain_ms=t["plain"], bound_ms=max(tb, to),
+            bound_by="bytes" if tb >= to else "operations",
+            library_ms=lib_ms)
+        print(f"{name} time, one step over the {len(shapes)}-leaf selection "
+              f"({n / 1e6:.1f} M elements, {nbytes / 1e9:.2f} GB moved): "
+              f"kernel {t['kernel']:.3f} ms (again {t['kernel2']:.3f}), "
+              f"bound {max(tb, to):.3f} ms, plain {t['plain']:.3f} ms"
+              + (f", torch._fused_adam_ {lib_ms:.3f} ms (no mask: reads "
+                 f"1 B/element less)" if lib_ms is not None else
+                 ", no one-call library equivalent"))
+    del p, gr, mask, mq, ms_, vq, vs
+    torch.cuda.empty_cache()
+
+
+def reference_small(torch, np):
+    """Small-input reference: 6 BlockLLM steps of reduced internlm2 (f32)
+    on the card (the kernels) and on the CPU (their plain versions), from
+    the same weights and batches, f32 and Q8 moments.  Adam eps 1e-3, as
+    in tests/test_torch_blockllm.py (with 1e-8 the refresh-step mask is
+    decided by rounding).  Losses within rtol 1e-4, the same selections."""
+    from repro_torch import trainers
+    from repro_torch.adapters import copy_tree
+    from repro_torch.checkpoint.checkpointer import tree_map
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.core.blockllm import BlockLLMConfig
+    from repro_torch.core.selection import SelectorConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import Adam
+    cfg = reduce_config(get_config(ARCH), 8).replace(dtype="float32")
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cpu").manual_seed(4), device="cpu")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                    global_batch=4, seed=4))
+    sel = SelectorConfig(sparsity=0.9, static_k_frac=0.34, reselect_every=3)
+    for q8 in (False, True):
+        runs = {}
+        for dev, fused in (("cuda", "kernel"), ("cpu", "plain")):
+            tr = trainers.handle(
+                "blockllm", cfg, tree_map(lambda a: a.to(dev),
+                                          copy_tree(params)),
+                device=dev, adam=Adam(lr=1e-3, eps=1e-3), quantize_state=q8,
+                bcfg=BlockLLMConfig(selector=sel, fused_update=fused))
+            runs[dev] = ([tr.train_step(pipe.batch(s))["loss"]
+                          for s in range(6)], tr.state.meta)
+        lc, lp = runs["cuda"][0], runs["cpu"][0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        same = all(runs["cuda"][1][k] == runs["cpu"][1][k] for k in
+                   ("stack_idx", "probe_idx", "active_leaves"))
+        ok = rel <= 1e-4 and same and np.isfinite(lc).all()
+        print(f"small-input reference ({'Q8' if q8 else 'f32'} moments, "
+              f"reduced {ARCH}, 6 steps, 2 reselections): card (kernels) "
+              f"vs CPU (plain) losses max rel diff {rel:.2e} (rtol 1e-4), "
+              f"same selections {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("training on the card disagrees with the "
+                                 "CPU reference")
+
+
+def train_main_path(torch, np, ops):
+    """The slice's main path through the launcher a user calls."""
+    from repro_torch.launch import train as tlaunch
+    print(f"train main path: python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_ARGV)}")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = tlaunch.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = out["losses"], out["step_ms"]
+    rest = np.asarray(step_ms[1:])
+    vocab = out["trainer"].cfg.vocab_size
+    print(f"train main path: losses per step {[round(x, 4) for x in losses]}"
+          f"; step ms: refresh step {step_ms[0]:.1f}, the other "
+          f"{len(rest)} p50 {np.percentile(rest, 50):.1f} p99 "
+          f"{np.percentile(rest, 99):.1f}; {wall:.1f} s wall including "
+          f"init; launches {launches}; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    if not (np.isfinite(losses).all() and len(losses) == 8):
+        raise AssertionError("train main path: non-finite or missing loss")
+    if abs(losses[0] - np.log(vocab)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]:.3f} is not near "
+                             f"ln(vocab) = {np.log(vocab):.3f}")
+    if launches["masked_adam_q8"] == 0:
+        raise AssertionError("masked_adam_q8 did not launch on the train "
+                             "main path")
+    # the Q8 state: a v code of 0 beside a non-zero m code makes Adam's
+    # step m_hat / eps (the reference's Q8 divergence, ROADMAP C)
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    opt = out["trainer"].state.arrays["opt"]
+    pairs = list(zip(_flatten_with_names(opt.mu_q)[1],
+                     _flatten_with_names(opt.nu_q)[1]))
+    flushed = sum(int(((vq == 0) & (mq != 0)).sum()) for mq, vq in pairs)
+    total = sum(vq.numel() for _, vq in pairs)
+    print(f"train main path: Q8 state after the run: {flushed} of {total} "
+          f"moment elements ({flushed / total:.1%}) have v code 0 beside a "
+          f"non-zero m code")
+    report = out["trainer"].memory_report()
+    del out, opt, pairs
+    torch.cuda.empty_cache()
+    return launches, peak, report
+
+
+def profile_train(torch, core, state, pipe, first):
+    """2 steady BlockLLM steps under torch.profiler: wall vs device busy,
+    the masked-Adam kernels' share, the top kernels."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n = 2
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        for s in range(first, first + n):
+            state, _ = core.step(state, pipe.batch(s))
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / n
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    adam = sum(e.self_device_time_total for e in rows
+               if "masked_adam" in e.key) / 1e3 / n
+    print(f"train step profile ({ARCH}, blockllm f32 moments, fused "
+          f"kernel, batch 8 x 256, {n} steady steps): wall {wall_ms:.1f} "
+          f"ms/step, device busy {busy:.1f} ms/step, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.1%}, masked_adam "
+          f"{adam:.3f} ms/step ({adam / max(busy, 1e-9):.1%} of busy)")
+    groups = {"gemm": 0.0, "elementwise/copy": 0.0, "reduce/softmax": 0.0,
+              "masked_adam": 0.0, "other": 0.0}
+    for e in rows:
+        name = e.key.lower()
+        t = e.self_device_time_total / 1e3 / n
+        if "masked_adam" in name:
+            groups["masked_adam"] += t
+        elif any(w in name for w in ("gemm", "cutlass", "sm90_", "nvjet",
+                                     "matmul")):
+            groups["gemm"] += t
+        elif any(w in name for w in ("reduce", "softmax", "norm", "sort",
+                                     "scan")):
+            groups["reduce/softmax"] += t
+        elif any(w in name for w in ("elementwise", "copy", "cast",
+                                     "vectorized", "unrolled", "index",
+                                     "gather", "scatter")):
+            groups["elementwise/copy"] += t
+        else:
+            groups["other"] += t
+    print("  device ms/step by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in groups.items()))
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+              f"{e.count // n:5d} calls/step  {e.key[:70]}")
+    (OUT / "train_profile.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40))
+    return state
+
+
+def train_api(torch, np, ops, q8_peak, q8_report):
+    """blockllm (f32 moments, fused_update="kernel") then full adam, at
+    the main path's width, depth and batch: the memory comparison."""
+    from repro_torch import trainers
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.blockllm import BlockLLMConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adam import Adam
+    cfg = get_config(ARCH)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                    global_batch=8, seed=0))
+    core = trainers.make("blockllm", cfg, adam=Adam(lr=1e-3),
+                         bcfg=BlockLLMConfig(fused_update="kernel"),
+                         device="cuda")
+    state = core.init(torch.Generator("cuda").manual_seed(0))
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for s in range(8):
+        t0 = time.monotonic()
+        state, m = core.step(state, pipe.batch(s))   # ends in a host read
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_f32 = torch.cuda.max_memory_allocated()
+    rep_f32 = core.memory_report(state)
+    print(f"blockllm f32 moments (fused_update='kernel'), 8 steps: losses "
+          f"{[round(x, 4) for x in losses]}; step ms: refresh step "
+          f"{step_ms[0]:.1f}, the other 7 p50 "
+          f"{np.percentile(step_ms[1:], 50):.1f} p99 "
+          f"{np.percentile(step_ms[1:], 99):.1f}; launches {launches}, peak "
+          f"device memory {peak_f32 / 2 ** 30:.2f} GiB")
+    if launches["masked_adam"] == 0 or not np.isfinite(losses).all():
+        raise AssertionError("masked_adam did not launch (or the loss is "
+                             "not finite) on the f32 path")
+    state = profile_train(torch, core, state, pipe, 8)
+    del state, core
+    torch.cuda.empty_cache()
+    core = trainers.make("adam", cfg, adam=Adam(lr=1e-3), device="cuda")
+    state = core.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    a_losses, a_ms = [], []
+    for s in range(3):
+        t0 = time.monotonic()
+        state, m = core.step(state, pipe.batch(s))
+        a_ms.append((time.monotonic() - t0) * 1e3)
+        a_losses.append(m["loss"])
+    torch.cuda.synchronize()
+    peak_adam = torch.cuda.max_memory_allocated()
+    rep_adam = core.memory_report(state)
+    print(f"adam (dense), 3 steps: losses {[round(x, 4) for x in a_losses]}"
+          f", step ms {[round(x, 1) for x in a_ms]}, peak device memory "
+          f"{peak_adam / 2 ** 30:.2f} GiB")
+    if not np.isfinite(a_losses).all():
+        raise AssertionError("adam loss is not finite")
+    del state, core
+    torch.cuda.empty_cache()
+    gib = lambda r: {k: round(v / 2 ** 30, 3) for k, v in r.items()}
+    print(f"peak device memory ({ARCH}, batch 8 x 256): blockllm+q8 "
+          f"{q8_peak / 2 ** 30:.2f} GiB, blockllm {peak_f32 / 2 ** 30:.2f} "
+          f"GiB, adam {peak_adam / 2 ** 30:.2f} GiB")
+    for name, rep in (("blockllm+q8", q8_report), ("blockllm", rep_f32),
+                      ("adam", rep_adam)):
+        print(f"  memory_report {name} (GiB): {gib(rep)}")
+    return launches
+
+
+def checkpoint_export_serve(torch, np, ops):
+    """Checkpoint -> crash -> resume -> export -> serve, full width, depth
+    cut to 4 layers (full depth writes about 12 GB of npz per checkpoint).
+    blockllm+q8 (the fused Q8 kernel), patience 2 so it reselects, the
+    leaf units always active (restore takes the fresh state's structure)."""
+    import shutil
+    from repro_torch import trainers
+    from repro_torch.adapters import AdapterRegistry, copy_tree
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.blockllm import BlockLLMConfig
+    from repro_torch.core.selection import SelectorConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import Adam
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime.serve_config import ServeConfig
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    cfg = get_config(ARCH).replace(num_layers=4)
+    params0 = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(7), device="cuda")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                    global_batch=8, seed=7))
+    bcfg = BlockLLMConfig(selector=SelectorConfig(
+        patience=2, always_active_leaves=("final_norm", "embed", "head")),
+        fused_update="kernel")
+
+    def handle():
+        core = trainers.make("blockllm+q8", cfg, adam=Adam(lr=1e-3),
+                             bcfg=bcfg, device="cuda")
+        return trainers.TrainerHandle(core, core.init(None,
+                                                      copy_tree(params0)))
+
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    t0 = time.monotonic()
+    whole = handle()
+    train_loop.run(whole, pipe.batch, train_loop.TrainLoopConfig(
+        total_steps=6, log_every=0))
+    lcfg = train_loop.TrainLoopConfig(
+        total_steps=6, ckpt_every=3, log_every=0,
+        ckpt_dir=str(SCRATCH / "ckpt"), adapter_dir=str(SCRATCH / "adapters"),
+        adapter_id="tuned")
+    crashed = handle()
+    try:
+        train_loop.run(crashed, pipe.batch, lcfg, crash_at=5)
+        raise AssertionError("the simulated crash did not happen")
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    del crashed
+    resumed = handle()
+    train_loop.run(resumed, pipe.batch, lcfg)
+    torch.cuda.synchronize()
+    na, la, _ = _flatten_with_names(whole.state.arrays)
+    nb, lb, _ = _flatten_with_names(resumed.state.arrays)
+    same = (na == nb and resumed.state.meta == whole.state.meta and all(
+        a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                           b.reshape(-1).view(torch.uint8))
+        for a, b in zip(la, lb)))
+    print(f"crash-resume ({ARCH} width, 4 layers, blockllm+q8, ckpt at 3, "
+          f"crash at 5, resumed to 6; {whole.state.meta['reselections']} "
+          f"selections): resumed == uninterrupted bitwise over {len(la)} "
+          f"leaves and the host meta: {same} "
+          f"({time.monotonic() - t0:.1f} s with checkpoint I/O)")
+    if not same:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted run")
+    del whole
+    registry = AdapterRegistry(SCRATCH / "adapters")
+    delta = registry.get("tuned")
+    print(f"exported tenant 'tuned': {delta.num_rows()} rows, "
+          f"{delta.nbytes / 2 ** 20:.1f} MiB, step {delta.meta['step']}")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 48)))
+               for _ in range(4)]
+    scfg = ServeConfig(batch_slots=4, max_seq=128, attn_impl="kernel")
+
+    def serve(params, reg, tenant):
+        srv = DecodeServer(cfg, params, scfg, registry=reg)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16,
+                        adapter_id=tenant) for i, p in enumerate(prompts)]
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        out = [r.out for r in reqs]
+        del srv
+        return out
+
+    ops.reset_launches()
+    got = serve(params0, registry, "tuned")
+    launches = dict(ops.LAUNCHES)
+    want = serve(resumed.merged_params(), None, None)
+    ok = got == want and all(len(o) == 16 for o in got)
+    print(f"serve the exported tenant (4 requests, kernel attention): "
+          f"launches {launches}; tokens equal a server with the trained "
+          f"rows written in: {ok}")
+    if not ok or not all(launches[k] for k in SERVE_KERNELS):
+        raise AssertionError("the served tenant disagrees, or a serving "
+                             "kernel did not launch")
+    del resumed, params0, delta, registry
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 
 def main() -> int:
     try:
@@ -474,6 +1010,7 @@ def main() -> int:
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import masked_adam as ma
     from repro_torch.kernels import scatter_apply as sa
     t0 = time.monotonic()
     build.build_all()
@@ -481,14 +1018,21 @@ def main() -> int:
           f"(nvcc sm_90a, one process per source, in parallel)")
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
-        want = {"decode_attention": "Li4ELi2E",   # hd 128, G 2
-                "scatter_swap": "scatter_swap"}[name]
-        rows, most = ptxas_summary(info["log"], want)
-        print(f"  {name}: {info['seconds']:.1f} s, compiled="
-              f"{info['compiled']}, max registers over all entries {most}")
-        for entry, line in rows:
-            short = entry[entry.find(f"{name}_kernel"):][:60]
-            print(f"    {short}: {line.replace('ptxas info    : ', '')}")
+        wants = {"decode_attention": ["Li4ELi2E"],        # hd 128, G 2
+                 "scatter_swap": ["scatter_swap"],
+                 # f32 p, stored mask: the main path's instantiations
+                 "masked_adam": ["masked_adam_kernelIfLb0ELb1E",
+                                 "masked_adam_q8_kernelIfLb0ELb1E"]}[name]
+        for want in wants:
+            rows, most = ptxas_summary(info["log"], want)
+            if want == wants[0]:
+                print(f"  {name}: {info['seconds']:.1f} s, compiled="
+                      f"{info['compiled']}, max registers over all entries "
+                      f"{most}")
+            for entry, line in rows:
+                short = entry[entry.find(name):][:60]
+                print(f"    {short}: "
+                      f"{line.replace('ptxas info    : ', '')}")
 
     # phases 2 + 3
     results = {}
@@ -515,7 +1059,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     if tok != 16 * 32:
         raise AssertionError(f"main path emitted {tok} tokens, not 512")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -527,23 +1071,52 @@ def main() -> int:
     teacher_forced(torch, np)
     torch.cuda.empty_cache()
     profile_decode(torch, np)
+    torch.cuda.empty_cache()
 
-    # phase 6
-    sources = {"decode_attention": "src/repro_torch/kernels/csrc/"
-                                   "decode_attention.cu",
-               "scatter_swap": "src/repro_torch/kernels/csrc/"
-                               "scatter_swap.cu"}
+    # phase 6: the training kernels against their plain versions, times
+    check_masked_adam(torch, ma, results)
+    time_masked_adam(torch, ops, results)
+    reference_small(torch, np)
+    torch.cuda.empty_cache()
+
+    # phase 7: the training main path through the launcher
+    t_launches, q8_peak, q8_report = train_main_path(torch, np, ops)
+
+    # phase 8: the f32 kernel path and the memory comparison via the API
+    f32_launches = train_api(torch, np, ops, q8_peak, q8_report)
+
+    # phase 9: checkpoint -> crash -> resume -> export -> serve
+    checkpoint_export_serve(torch, np, ops)
+
+    # phase 10: launches are each kernel's count on its path's run:
+    # serving main path, training main path (Q8), the f32 API run
+    launches = {**{k: launches[k] for k in SERVE_KERNELS},
+                "masked_adam_q8": t_launches["masked_adam_q8"],
+                "masked_adam": f32_launches["masked_adam"]}
+    path_of = {"decode_attention": "serving main path",
+               "scatter_swap": "serving main path",
+               "masked_adam_q8": "training main path (blockllm+q8)",
+               "masked_adam": "blockllm f32 run (fused_update='kernel')"}
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"decode_attention": csrc + "decode_attention.cu",
+               "scatter_swap": csrc + "scatter_swap.cu",
+               "masked_adam": csrc + "masked_adam.cu",
+               "masked_adam_q8": csrc + "masked_adam.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:186",
-                "scatter_swap": "src/repro/kernels/scatter_apply.py:81"}
+                "scatter_swap": "src/repro/kernels/scatter_apply.py:81",
+                "masked_adam": "src/repro/kernels/masked_adam.py:152",
+                "masked_adam_q8": "src/repro/kernels/masked_adam.py:117"}
     kernels = []
-    for name in ("decode_attention", "scatter_swap"):
+    for name in ("decode_attention", "scatter_swap", "masked_adam",
+                 "masked_adam_q8"):
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
                         "launches": launches[name], **r})
-        print(f"kernels: {name} launches {launches[name]} on the main path, "
-              f"parity ok (max_abs_err {r['max_abs_err']:.3g}), "
-              f"{r['ms']:.4f} ms vs bound {r['bound_ms']:.4f} ms")
+        print(f"kernels: {name} launches {launches[name]} on the "
+              f"{path_of[name]}, parity ok (max_abs_err "
+              f"{r['max_abs_err']:.3g}), {r['ms']:.4f} ms vs bound "
+              f"{r['bound_ms']:.4f} ms")
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi())

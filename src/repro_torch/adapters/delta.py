@@ -254,3 +254,11 @@ def load_delta(path, *, verify_checksum: bool = True) -> SparseDelta:
             row_shape=tuple(qm["shape"]) if qm else None,
             row_dtype=qm["dtype"] if qm else None)
     return SparseDelta(entries, meta)
+
+
+def delta_from_trainer(trainer, base: Pytree, *,
+                       meta: Optional[dict] = None) -> SparseDelta:
+    """Diff a trainer's merged params against the pre-finetune base."""
+    tuned = (trainer.merged_params() if hasattr(trainer, "merged_params")
+             else trainer.params)
+    return extract_delta(base, tuned, meta=meta)

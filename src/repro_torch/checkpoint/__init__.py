@@ -1,1 +1,2 @@
-"""Parameter-tree payloads in the checkpointer's on-disk format."""
+"""Atomic step checkpoints and parameter-tree payloads, in the JAX
+package's on-disk format."""

@@ -1,15 +1,19 @@
-"""Leaf naming and the atomic payload format of ``repro.checkpoint``.
+"""Atomic checkpointing with auto-resume (counterpart of
+``repro.checkpoint.checkpointer``), in the same on-disk format, so a
+checkpoint or payload written by either package reads in the other:
 
-Only what the serving slice needs is ported: ``_flatten_with_names``
-(the leaf-path scheme that adapter deltas and the interop layer key
-on) and ``write_payload``/``read_payload`` with the same on-disk
-format, so a payload written by either package reads in the other:
-
-    <dir>/
+    <dir>/step_00000123/
       manifest.json      ({"meta": ..., "leaves": [{name, key, dtype,
-                          stored_as, shape}]} + extra top-level keys)
+                          stored_as, shape}], "step": 123})
       arrays.npz         (one array per leaf, keys a0, a1, ...)
       DONE               (commit marker: written last => atomicity)
+
+``_flatten_with_names`` is the leaf-path scheme that checkpoints,
+adapter deltas and the interop layer key on (dict keys sorted, list
+indices as ints, NamedTuple fields as ``.name``).  Writes go to
+``<dir>.tmp`` and are committed by one rename after DONE, so a crash
+never leaves a checkpoint that ``latest_step`` would pick up.  A
+trainer's JSON host state rides in the manifest's ``meta``.
 
 Arrays are torch tensors in memory.  Dtypes numpy lacks (bfloat16,
 float8) are stored as their raw bits in a uintN array and the manifest
@@ -68,6 +72,12 @@ def _flatten(tree, path, names, leaves):
         subs = [_flatten(tree[k], path + (str(k),), names, leaves)
                 for k in keys]
         return lambda it: {k: b(it) for k, b in zip(keys, subs)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        # a NamedTuple (AdamState): JAX names its fields ".count", ...
+        subs = [_flatten(getattr(tree, f), path + (f".{f}",), names, leaves)
+                for f in tree._fields]
+        kind = type(tree)
+        return lambda it: kind(*[b(it) for b in subs])
     if isinstance(tree, (list, tuple)):
         subs = [_flatten(v, path + (str(i),), names, leaves)
                 for i, v in enumerate(tree)]
@@ -112,7 +122,7 @@ def from_numpy(arr: np.ndarray, name: Optional[str] = None) -> torch.Tensor:
     """Tensor of logical dtype ``name`` (default: the array's own) from a
     host array, bit-exact; ``arr`` may hold raw uintN bits."""
     name = name or str(arr.dtype)
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)   # keeps 0-dim
     if name in _NUMPY_NATIVE:
         return torch.from_numpy(arr.copy())
     bits = {1: np.uint8, 2: np.int16}[arr.dtype.itemsize]
@@ -166,3 +176,79 @@ def read_payload(path) -> Tuple[Dict[str, torch.Tensor], dict]:
         for e in manifest["leaves"]:
             out[e["name"]] = from_numpy(arrays[e["key"]], e["dtype"])
     return out, manifest
+
+
+# --------------------------------------------------------------------- #
+# step checkpoints
+# --------------------------------------------------------------------- #
+
+
+def save(ckpt_dir, step: int, tree: Pytree, *, meta: Optional[dict] = None,
+         keep: int = 3) -> Path:
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    names, leaves, _ = _flatten_with_names(tree)
+    named = {}
+    for name, leaf in zip(names, leaves):
+        if name in named:
+            raise ValueError(f"duplicate leaf path {name!r}")
+        named[name] = leaf
+    final = write_payload(ckpt_dir / f"step_{step:08d}", named, meta=meta,
+                          extra={"step": step})
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _committed_steps(ckpt_dir: Path):
+    # only step_<digits> with DONE count: .tmp (staging) and .old
+    # (mid-replace remnant) are never live checkpoints
+    return [p for p in ckpt_dir.glob("step_*")
+            if p.name.split("_", 1)[1].isdigit() and (p / "DONE").exists()]
+
+
+def _gc(ckpt_dir: Path, keep: int):
+    for p in sorted(_committed_steps(ckpt_dir))[:-keep]:
+        shutil.rmtree(p)
+
+
+def read_meta(ckpt_dir, step: int) -> dict:
+    """Manifest ``meta`` alone, without loading the arrays."""
+    path = Path(ckpt_dir) / f"step_{step:08d}"
+    return json.loads((path / "manifest.json").read_text()).get("meta", {})
+
+
+def latest_step(ckpt_dir) -> Optional[int]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = [int(p.name.split("_")[1]) for p in _committed_steps(ckpt_dir)]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir, step: int, like: Pytree):
+    """Restore into the structure of ``like``: each leaf takes the dtype
+    and device of its counterpart in ``like``.  Leaves are matched in
+    flatten order, as the JAX package matches them."""
+    path = Path(ckpt_dir) / f"step_{step:08d}"
+    named, manifest = read_payload(path)
+    _, flat_like, treedef = _flatten_with_names(like)
+    entries = manifest["leaves"]
+    if len(entries) != len(flat_like):
+        raise ValueError(f"checkpoint has {len(entries)} leaves, expected "
+                         f"{len(flat_like)}")
+    out = []
+    for e, proto in zip(entries, flat_like):
+        arr = named[e["name"]]
+        if list(arr.shape) != list(proto.shape):
+            raise ValueError(f"{e['name']}: {tuple(arr.shape)} vs "
+                             f"{tuple(proto.shape)}")
+        out.append(arr.to(device=proto.device, dtype=proto.dtype))
+    return treedef.unflatten(out), manifest["meta"]
+
+
+def restore_latest(ckpt_dir, like: Pytree):
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return None, None, None
+    tree, meta = restore(ckpt_dir, step, like)
+    return step, tree, meta

@@ -27,11 +27,15 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"decode_attention": "decode_attention.cu",
-           "scatter_swap": "scatter_swap.cu"}
+           "scatter_swap": "scatter_swap.cu",
+           "masked_adam": "masked_adam.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# one counter per kernel; masked_adam.cu holds two
+KERNELS = ("decode_attention", "scatter_swap", "masked_adam",
+           "masked_adam_q8")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # per kernel: seconds, whether nvcc ran, and nvcc's output (-Xptxas -v)
 BUILD_INFO: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -64,13 +68,20 @@ def _nvcc() -> str:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    n = ctypes.c_longlong
     if name == "decode_attention":
-        fn = lib.decode_attention_launch
-        fn.argtypes = [p] * 6 + [i] * 9 + [f, f, i, p]
+        fns = [(lib.decode_attention_launch,
+                [p] * 6 + [i] * 9 + [f, f, i, p])]
+    elif name == "scatter_swap":
+        fns = [(lib.scatter_swap_launch, [p, p, p, p, i, n, p])]
     else:
-        fn = lib.scatter_swap_launch
-        fn.argtypes = [p, p, p, p, i, ctypes.c_longlong, p]
-    fn.restype = i
+        fns = [(lib.masked_adam_launch, [p] * 5 + [n, i, i] + [f] * 8
+                + [i, p]),
+               (lib.masked_adam_q8_launch, [p] * 7 + [n, i, i] + [f] * 8
+                + [i, p])]
+    for fn, argtypes in fns:
+        fn.argtypes = argtypes
+        fn.restype = i
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p

@@ -1,6 +1,7 @@
 """Public kernel entry points: dispatch, launch counters, profiling.
 
-Counterpart of ``repro.kernels.ops`` for the serving slice's two kernels.
+Counterpart of ``repro.kernels.ops`` for the ported kernels: decode
+attention, the row scatter-swap and masked Adam (f32 and Q8 moments).
 Every op takes ``mode``:
 
 - ``auto``: the Hopper kernel for a CUDA tensor, the plain PyTorch
@@ -25,7 +26,9 @@ import time
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import _flatten_with_names
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import masked_adam as ma
 from repro_torch.kernels import scatter_apply as sa
 from repro_torch.kernels.build import (LAUNCHES, builds,  # noqa: F401
                                        reset_launches)
@@ -167,3 +170,81 @@ def scatter_swap(full, idx, rows, *, mode: str = "auto",
     # rows read + written in both directions (the swap is an involution)
     return _profiled_call("scatter_swap", fn, (full, idx, rows), {},
                           2 * rows.nbytes, full.device)
+
+
+# --------------------------------------------------------------------- #
+# fused masked adam over parameter trees (the BlockLLM optimizer step)
+# --------------------------------------------------------------------- #
+
+
+def _leaves(tree):
+    return _flatten_with_names(tree)[1]
+
+
+def _mask_leaves(masks, n):
+    return [None] * n if masks is None else _leaves(masks)
+
+
+def _tree_nbytes(*trees) -> int:
+    return sum(t.nbytes for tree in trees if tree is not None
+               for t in _leaves(tree))
+
+
+def masked_adam_tree(params, grads, mu, nu, masks, *, lr, b1=0.9, b2=0.999,
+                     eps=1e-8, weight_decay=0.0, count=0, tau=0.0,
+                     use_tau=False, mode: str = "auto"):
+    """Fused masked Adam across every leaf, in place on ``params``,
+    ``mu`` and ``nu`` (the JAX step donates them).  Returns ``(params,
+    mu, nu)``.  ``masks`` None (or a None leaf) means gate 1: no ones
+    tensor is made.  One kernel launch per leaf, on the flat leaf (the
+    JAX wrapper's ``_to_2d`` view is not needed)."""
+    scal = ma.scalars(lr=lr, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay, count=count, tau=tau)
+    ps = _leaves(params)
+    if not ps:
+        return params, mu, nu
+    fn = (ma.masked_adam_cuda if route(mode, ps[0]) == "kernel"
+          else ma.masked_adam_plain)
+
+    def run():
+        for p, g, m, v, msk in zip(ps, _leaves(grads), _leaves(mu),
+                                   _leaves(nu), _mask_leaves(masks, len(ps))):
+            fn(p, g, m, v, msk, scal, use_tau=use_tau)
+        return params, mu, nu
+
+    if _PROFILER is None:
+        return run()
+    # params/mu/nu read + written, grads and masks read once
+    nb = 2 * _tree_nbytes(params, mu, nu) + _tree_nbytes(grads, masks)
+    return _profiled_call("masked_adam", run, (), {}, nb, ps[0].device)
+
+
+def masked_adam_q8_tree(params, grads, mu_q, mu_scale, nu_q, nu_scale,
+                        masks, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+                        weight_decay=0.0, count=0, tau=0.0, use_tau=False,
+                        mode: str = "auto"):
+    """Fused dequant -> masked Adam -> requant across every leaf, in place
+    on ``params`` and the Q8 moments (int8 ``[NB, 256]`` codes + f32
+    ``[NB]`` scales per leaf): no f32 moment tree is made.  Returns
+    ``(params, mu_q, mu_scale, nu_q, nu_scale)``."""
+    scal = ma.scalars(lr=lr, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay, count=count, tau=tau)
+    ps = _leaves(params)
+    if not ps:
+        return params, mu_q, mu_scale, nu_q, nu_scale
+    fn = (ma.masked_adam_q8_cuda if route(mode, ps[0]) == "kernel"
+          else ma.masked_adam_q8_plain)
+
+    def run():
+        for p, g, mq, ms, vq, vs, msk in zip(
+                ps, _leaves(grads), _leaves(mu_q), _leaves(mu_scale),
+                _leaves(nu_q), _leaves(nu_scale),
+                _mask_leaves(masks, len(ps))):
+            fn(p, g, mq, ms, vq, vs, msk, scal, use_tau=use_tau)
+        return params, mu_q, mu_scale, nu_q, nu_scale
+
+    if _PROFILER is None:
+        return run()
+    nb = (2 * _tree_nbytes(params, mu_q, mu_scale, nu_q, nu_scale)
+          + _tree_nbytes(grads, masks))
+    return _profiled_call("masked_adam_q8", run, (), {}, nb, ps[0].device)

@@ -1,5 +1,5 @@
 """PyTorch counterparts of the oracles in ``repro.kernels.ref`` (the test
-ground truth for the serving slice's kernels)."""
+ground truth of the ported kernels)."""
 from __future__ import annotations
 
 import math
@@ -40,3 +40,38 @@ def scatter_swap_ref(full, idx, rows):
     out = full.clone()
     out[idx] = rows.to(full.dtype)
     return out, full[idx]
+
+
+def masked_adam_ref(p, g, m, v, mask, scalars, *, use_tau=False):
+    """Oracle for ``masked_adam``: ``scalars`` = [lr, b1, b2, eps, wd,
+    bc1, bc2, tau] (f32 tensor); returns ``(p', m', v')``, inputs intact.
+    ``1 - b1`` in f32 from the f32 scalar, as the TPU kernel."""
+    lr, b1, b2, eps, wd, bc1, bc2, tau = [scalars[i] for i in range(8)]
+    g = g.float()
+    m2 = b1 * m + (1 - b1) * g
+    v2 = b2 * v + (1 - b2) * g * g
+    u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+    gate = ((u.abs() >= tau).float() if use_tau else mask.float())
+    p32 = p.float()
+    u = u * gate + wd * p32
+    return (p32 - lr * u).to(p.dtype), m2, v2
+
+
+def masked_adam_q8_ref(p, g, mq, ms, vq, vs, mask, scalars, *,
+                       use_tau=False):
+    """Oracle for ``masked_adam_q8``: p/g/mask [NB, 256] codec views;
+    mq/vq int8 [NB, 256]; ms/vs f32 [NB, 1].  Dequant -> masked_adam_ref
+    -> requant with the runtime/compression.py formula."""
+    m = mq.float() * ms
+    v = vq.float() * vs
+    p2, m2, v2 = masked_adam_ref(p, g, m, v, mask, scalars,
+                                 use_tau=use_tau)
+
+    def requant(x):
+        s = torch.clamp(x.abs().amax(dim=1, keepdim=True) / 127.0,
+                        min=1e-12)
+        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+    mq2, ms2 = requant(m2)
+    vq2, vs2 = requant(v2)
+    return p2, mq2, ms2, vq2, vs2

@@ -1,7 +1,7 @@
-"""Dense decoder: ``ModelConfig`` -> init / forward / serving steps.
+"""Dense decoder: ``ModelConfig`` -> init / forward / loss / serving steps.
 
-Counterpart of ``repro.models.model`` for the serving slice: dense,
-attention-only architectures (global and local attention blocks).  The
+Counterpart of ``repro.models.model`` for dense, attention-only
+architectures (global and local attention blocks).  The
 parameter tree keeps the JAX layout — ``stages[i]["posJ"][...]`` leaves
 stacked ``[G, ...]``, one row per layer — because adapters index those
 rows and the delta fingerprint hashes the leaf paths.  ``_stack_apply``
@@ -10,6 +10,10 @@ is a Python loop over the rows where JAX scans.
 Weights are held in f32 and cast to the compute dtype at each matmul,
 as in the JAX package (the delta fingerprint and the bit-exact revert
 depend on the f32 leaves).
+
+Training: ``loss_fn`` (next-token cross entropy, chunked over the
+sequence when ``S * V`` is large) takes BlockLLM's ``overlay`` of
+selected and probe rows, which replace their frozen rows layer by layer.
 
 Serving caches are updated in place (the JAX package donates them):
 the decode step writes row ``pos[b]`` of each slot only where
@@ -27,8 +31,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.checkpoint.checkpointer import tree_map
+from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
                                       ModelConfig)
 from repro_torch.kernels import ops
@@ -279,22 +284,55 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     return x
 
 
+def _resolve_overlay(bp, g, ov):
+    """BlockLLM's per-layer merge (``repro.models.model._resolve_overlay``).
+
+    ``ov`` = {"idx": host list of the K selected rows, "rows": tree
+    [K, ...], "pidx"/"probe": the probe rows likewise}.  A selected or
+    probe row replaces the frozen row ``g`` (cast to its dtype), so the
+    gradient lands directly on the [K, ...] rows; frozen rows carry no
+    gradient (their tensors do not require one)."""
+    for ikey, rkey in (("idx", "rows"), ("pidx", "probe")):
+        rows = ov.get(rkey)
+        if rows is None or g not in ov[ikey]:
+            continue
+        k = ov[ikey].index(g)
+        _, base, td = _flatten_with_names(bp)
+        picked = _flatten_with_names(rows)[1]
+        bp = td.unflatten([a[k].to(f.dtype) for f, a in zip(base, picked)])
+    return bp
+
+
 def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
-                 pos=None, attn_impl="full", active=None):
+                 pos=None, attn_impl="full", active=None, overlay=None):
     """Apply the stacked blocks in order: a Python loop over the ``[G]``
-    rows of each stage (JAX scans them)."""
+    rows of each stage (JAX scans them).  ``overlay``: optional
+    {"s{si}/pos{j}": ov} of BlockLLM active and probe rows (see
+    ``_resolve_overlay``).  In train mode with ``cfg.remat`` each block
+    is recomputed in the backward pass (``torch.utils.checkpoint``,
+    where JAX wraps the scan body in ``jax.checkpoint``)."""
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     for si, (pattern, groups) in enumerate(cfg.stages()):
         sp = stage_params[si]
         for g in range(groups):
             for j, btype in enumerate(pattern):
                 bp = tree_map(lambda a: a[g], sp[f"pos{j}"])
+                ov = (overlay or {}).get(f"s{si}/pos{j}")
+                if ov is not None:
+                    bp = _resolve_overlay(bp, g, ov)
                 cj = None
                 if caches is not None:
                     c = caches[si][f"pos{j}"]
                     cj = {"k": c["k"][g], "v": c["v"][g]}
-                x = _block_apply(cfg, btype, bp, x, positions=positions,
-                                 mode=mode, cache=cj, pos=pos,
-                                 attn_impl=attn_impl, active=active)
+                kw = dict(positions=positions, mode=mode, cache=cj, pos=pos,
+                          attn_impl=attn_impl, active=active)
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        lambda h, bp=bp, btype=btype, kw=kw: _block_apply(
+                            cfg, btype, bp, h, **kw), x,
+                        use_reentrant=False)
+                else:
+                    x = _block_apply(cfg, btype, bp, x, **kw)
     return x
 
 
@@ -304,9 +342,15 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
 
 
 def _embed(params, cfg, tokens):
-    # gather, then cast: the same values as JAX's cast-then-gather
-    # without casting the whole table
-    return params["embed"][tokens].to(_cdtype(cfg))
+    emb = params["embed"]
+    if emb.requires_grad:
+        # training the table: JAX's cast-then-gather, so the gradient
+        # accumulates over repeated tokens in the compute dtype as in JAX;
+        # F.embedding's backward is deterministic, where the CPU backward
+        # of advanced indexing accumulates in parallel in no fixed order
+        return F.embedding(tokens, emb.to(_cdtype(cfg)))
+    # gather, then cast: the same values without casting the whole table
+    return emb[tokens].to(_cdtype(cfg))
 
 
 def _unembed(params, cfg, x):
@@ -324,17 +368,100 @@ def _unembed(params, cfg, x):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, cfg: ModelConfig, tokens, *, attn_impl="full"):
-    """Full-sequence teacher-forced logits [B, S, vocab] (parity tests)."""
+def _hidden(params, cfg, tokens, *, overlay=None):
+    """Final-norm hidden states [B, S, D] of a full-sequence pass."""
     check_supported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
     x = _stack_apply(cfg, params["stages"], x, positions=positions,
-                     mode="train", attn_impl=attn_impl)
-    x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x)
+                     mode="train", overlay=overlay)
+    return layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, overlay=None):
+    """Full-sequence teacher-forced logits [B, S, vocab] (``full``
+    attention)."""
+    return _unembed(params, cfg, _hidden(params, cfg, tokens,
+                                         overlay=overlay))
+
+
+def _labels_mask(batch):
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+        mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                          torch.zeros_like(tokens[:, :1])], dim=1).float()
+    else:
+        mask = (labels >= 0).float()
+        labels = labels.clamp(min=0)
+    return labels, mask
+
+
+def _xent_from_logits(logits, labels, mask):
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def _chunked_xent(params, cfg, hidden, labels, mask, chunk):
+    """Cross entropy without materializing [B, S, V] logits: the sequence
+    in chunks, each chunk's logits recomputed in the backward pass
+    (``torch.utils.checkpoint``, where JAX uses ``jax.checkpoint``), the
+    chunk sums added in order as JAX's scan carry does."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+
+    def piece(xc, lc, mc):
+        return _xent_from_logits(_unembed(params, cfg, xc), lc, mc)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s in range(0, S, chunk):
+        args = (hidden[:, s:s + chunk], labels[:, s:s + chunk],
+                mask[:, s:s + chunk])
+        total = total + (torch.utils.checkpoint.checkpoint(
+            piece, *args, use_reentrant=False)
+            if torch.is_grad_enabled() else piece(*args))
+    return total
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="full",
+            loss_chunk=None, overlay=None):
+    """Next-token cross entropy.  Returns ``(loss, metrics)``.
+
+    ``loss_chunk``: None => auto (chunked when S * V > 2**27, as JAX);
+    0 => direct.  Attention is ``full`` (JAX's ``chunked`` attention only
+    differs for S > 2048, which the port does not train yet)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if attn_impl not in ("full", "chunked"):
+        raise ValueError(f"attn_impl {attn_impl!r}: training attention is "
+                         f"'full'")
+    if attn_impl == "chunked" and S > 2048:
+        raise NotImplementedError(
+            "attention_chunked (S > 2048) is not ported yet (ROADMAP "
+            "queue A)")
+    labels, mask = _labels_mask(batch)
+    if loss_chunk is None:
+        loss_chunk = 512 if S * cfg.vocab_size > (1 << 27) else 0
+    hidden = _hidden(params, cfg, tokens, overlay=overlay)
+    if loss_chunk:
+        nll_sum = _chunked_xent(params, cfg, hidden, labels, mask,
+                                loss_chunk)
+    else:
+        nll_sum = _xent_from_logits(_unembed(params, cfg, hidden), labels,
+                                    mask)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    nll = nll_sum / denom
+    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    loss = nll + aux
+    return loss, {"nll": nll, "aux": aux, "tokens": mask.sum()}
 
 
 def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,

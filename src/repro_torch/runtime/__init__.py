@@ -1,1 +1,2 @@
-"""Serving runtime: ServeConfig and the slot-batched DecodeServer."""
+"""Runtime: ServeConfig and the slot-batched DecodeServer, the training
+loop, the straggler monitor and the int8 block codec."""

@@ -9,6 +9,10 @@ only, so on a machine with a card and no JAX it runs on its own:
 
 Tolerances: f32 outputs rtol 1e-4 / atol 2e-5 (summation order), bf16
 outputs atol 2e-2 (one bf16 rounding step below 4); the swap bitwise.
+Masked Adam: the kernel and its plain version do the same IEEE
+operations in the same order (no FMA), so f32 results are held within 2
+ulp, bf16 parameters within one bf16 ulp, and the Q8 codes and scales
+bitwise.
 """
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import masked_adam as ma
 from repro_torch.kernels import ops
 from repro_torch.models import model as tmodel
 
@@ -123,3 +128,100 @@ def test_cuda_decode_steps_match_the_cpu_run(cuda_device):
             pos = pos + 1
         outs.append(torch.stack(got))
     torch.testing.assert_close(outs[1], outs[0], **F32_TOL)
+
+
+def _ulps(a, b):
+    """Largest distance in units of the last place between two f32 or
+    bf16 tensors (same-sign values; 0 where bitwise equal)."""
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return (a.contiguous().view(bits).long()
+            - b.contiguous().view(bits).long()).abs().max().item()
+
+
+def _adam_inputs(n, dtype, dev, seed=0, offset=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    mk = lambda: torch.randn(n + offset, generator=g, device=dev)[offset:]
+    p, gr = mk().to(dtype), mk().to(dtype)
+    m = mk() * 0.1
+    v = mk().abs() * 0.01
+    mask = torch.rand(n, generator=g, device=dev) > 0.5
+    return p, gr, m, v, mask
+
+
+SCAL = ma.scalars(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                  count=4, tau=0.7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(8 * 128, 0), (100 * 257, 0),
+                                      (513 * 130, 0), (1, 0), (4099, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", ["mask", "none", "tau"])
+def test_cuda_masked_adam_matches_plain(cuda_device, n, offset, dtype, gate):
+    p, g, m, v, mask = _adam_inputs(n, dtype, cuda_device, offset=offset)
+    mk = mask if gate == "mask" else None
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    before = ops.LAUNCHES["masked_adam"]
+    ma.masked_adam_cuda(kp, g, km, kv, mk, SCAL, use_tau=gate == "tau")
+    assert ops.LAUNCHES["masked_adam"] == before + 1
+    ma.masked_adam_plain(p, g, m, v, mk, SCAL, use_tau=gate == "tau")
+    torch.cuda.synchronize()
+    assert _ulps(km, m) <= 2 and _ulps(kv, v) <= 2
+    assert _ulps(kp, p) <= (1 if dtype == torch.bfloat16 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 100 * 257, 513 * 130, 7, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate", ["mask", "none", "tau"])
+def test_cuda_masked_adam_q8_matches_plain_bitwise(cuda_device, n, dtype,
+                                                   gate):
+    from repro_torch.runtime.compression import quantize_int8
+    p, g, m, v, mask = _adam_inputs(n, dtype, cuda_device, seed=1)
+    mq, ms = quantize_int8(m)
+    vq, vs = quantize_int8(v)
+    mk = mask if gate == "mask" else None
+    k = [t.clone() for t in (p, mq, ms, vq, vs)]
+    before = ops.LAUNCHES["masked_adam_q8"]
+    ma.masked_adam_q8_cuda(k[0], g, *k[1:], mk, SCAL, use_tau=gate == "tau")
+    assert ops.LAUNCHES["masked_adam_q8"] == before + 1
+    ma.masked_adam_q8_plain(p, g, mq, ms, vq, vs, mk, SCAL,
+                            use_tau=gate == "tau")
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], mq) and torch.equal(k[3], vq)
+    assert torch.equal(k[2].view(torch.int32), ms.view(torch.int32))
+    assert torch.equal(k[4].view(torch.int32), vs.view(torch.int32))
+    assert _ulps(k[0], p) <= (1 if dtype == torch.bfloat16 else 2)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_adam_tree_through_ops(cuda_device):
+    """ops.masked_adam_tree / masked_adam_q8_tree route CUDA leaves to the
+    kernels (one launch per leaf) and agree with mode='plain'."""
+    from repro_torch.optim.q8adam import quantize_tree
+    g0 = torch.Generator(cuda_device).manual_seed(3)
+    tree = {"a": torch.randn(6, 33, 8, generator=g0, device=cuda_device),
+            "b": torch.randn(300, generator=g0, device=cuda_device)}
+    grads = tree_map(lambda a: a * 0.1, tree)
+    mu = tree_map(lambda a: torch.zeros_like(a), tree)
+    kw = dict(lr=1e-3, count=0, weight_decay=0.01)
+    outs = []
+    for mode in ("auto", "plain"):
+        p = tree_map(lambda a: a.clone(), tree)
+        m, v = tree_map(torch.clone, mu), tree_map(torch.clone, mu)
+        before = ops.LAUNCHES["masked_adam"]
+        ops.masked_adam_tree(p, grads, m, v, None, mode=mode, **kw)
+        assert ops.LAUNCHES["masked_adam"] == before + (2 if mode == "auto"
+                                                         else 0)
+        q8 = [quantize_tree(m)[0], quantize_tree(m)[1], quantize_tree(v)[0],
+              quantize_tree(v)[1]]
+        p8 = tree_map(lambda a: a.clone(), tree)
+        ops.masked_adam_q8_tree(p8, grads, *q8, None, mode=mode, **kw)
+        outs.append((p, m, v, p8, q8))
+    for a, b in zip(*(_flatten_leaves(o) for o in outs)):
+        assert _ulps(a, b) <= 2 if a.is_floating_point() else torch.equal(a, b)
+
+
+def _flatten_leaves(tree):
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    return _flatten_with_names(list(tree))[1]

@@ -198,6 +198,9 @@ def test_kernel_profiling_records_ops():
         ops.decode_attention(q, k, v, pos)
         ops.scatter_swap(torch.zeros(4, 6), np.asarray([1]),
                          torch.ones(1, 6))
+        leaf = {"a": torch.ones(3, 5)}
+        ops.masked_adam_tree(leaf, leaf, {"a": torch.zeros(3, 5)},
+                             {"a": torch.zeros(3, 5)}, None, lr=1e-3)
     finally:
         ops.disable_kernel_profiling()
     summary = prof.summary()
@@ -206,6 +209,8 @@ def test_kernel_profiling_records_ops():
         da.cache_read_bytes(pos, seq_len=64, kv_heads=2, head_dim=32,
                             dtype_bytes=4)
     assert summary["scatter_swap"]["bytes"] == 2 * 24
+    # p, m, v read and written, g read
+    assert summary["masked_adam"]["bytes"] == 7 * 15 * 4
     snap = metrics.snapshot()
     assert snap["kernels/decode_attention_calls"] == 1
     assert snap["kernels/scatter_swap_ms"]["count"] == 1

@@ -187,7 +187,8 @@ def test_launcher_quick_on_cpu(capsys, tmp_path):
 
 def test_port_imports_neither_jax_nor_repro():
     """Importing every module of the port (and chip_smoke.py) in a fresh
-    interpreter pulls in neither ``jax`` nor any ``repro.`` module."""
+    interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
+    training slice's modules are among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -199,8 +200,15 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+        "need = {'repro_torch.' + m for m in (\n"
+        "    'core.blockllm', 'core.selection', 'core.units', 'optim.adam',\n"
+        "    'optim.q8adam', 'optim.schedule', 'kernels.masked_adam',\n"
+        "    'trainers.blockllm', 'trainers.full_adam', 'data.pipeline',\n"
+        "    'runtime.train_loop', 'runtime.compression', 'launch.train',\n"
+        "    'obs.emit', 'runtime.straggler')}\n"
+        "missing = sorted(need - set(mods))\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 55 else 0)\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=120)
