@@ -52,9 +52,32 @@ What it does, failing (non-zero exit, no result line) on any error:
    bitwise, its exported BlockDelta tenant is served through
    ``DecodeServer`` with kernel attention and gives the tokens of a
    server whose base has the trained rows written in;
-10. a ``kernels:`` summary and one JSON line with every kernel's numbers,
-   the card's name and power limit again, and as the last line
-   ``{"ok": true, "device": {...}}``.
+10. paged KV serving (the port's slice 3): the fused paged write+attend
+   kernel against its plain version (o within the dense kernel's
+   tolerance, one bf16 ulp at bf16 output; pools bitwise outside the
+   null page) and against the dense kernel on the gathered view at equal
+   block_k (bitwise), over G 1/2/8, hd 64/128, f32/bf16 q, window,
+   softcap, inactive slots, shared prefix pages, writes on a page's first
+   and last row and a shuffled page table; its time at the main path's
+   shapes beside the dense kernel, the bound, the plain version and
+   gather + SDPA;
+11. the paged main path: ``python -m repro_torch.launch.serve --paged``
+   at full width and depth (8 slots, max_seq 1024, 16 requests, base + 2
+   demo tenants over a shared system prompt) with the launch counts reset
+   just before and read just after: streams equal to a dense run of the
+   same requests, 24 paged-kernel launches per decode step and no dense
+   decode-attention launch, prefix hits, step p50/p99, peak memory;
+12. a tight pool (16 slots over the pages of 8, one tenant: admission
+   throttles) whose streams equal a dense run, then ``--paged
+   --speculate 4`` whose streams equal the plain paged run, with one
+   paged-kernel launch per layer per decode pass of its rounds (rounds,
+   acceptance, rollback pages);
+13. the paged decode step against the dense one at 300-900-row
+   contexts in alternating segments, and a ``torch.profiler`` window of
+   the paged decode step, beside phase 5's dense one;
+then a ``kernels:`` summary and one JSON line with every kernel's
+numbers, the card's name and power limit again, and as the last line
+``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package.  Long logs (ptxas output, the
 profile tables) go to the ``OUT`` directory beside it; checkpoints and
@@ -85,6 +108,10 @@ LOGIT_BF16_TOL = 0.25     # bf16 model: the full path rounds probabilities
 ADAM_F32_ULPS = 2         # masked Adam: the kernel and its plain version do
 ADAM_BF16_ULPS = 1        # the same IEEE ops in the same order (no FMA)
 SERVE_KERNELS = ("decode_attention", "scatter_swap")
+PAGED_ARGV = ["--arch", ARCH, "--reduce", "0", "--attn-impl", "kernel",
+              "--demo-adapters", "2", "--slots", "8", "--max-seq", "1024",
+              "--requests", "16", "--new-tokens", "32", "--paged",
+              "--prefill-chunk", "32", "--steps-per-turn", "2"]
 TRAIN_ARGV = ["--arch", ARCH, "--reduce", "0", "--optimizer", "blockllm+q8",
               "--batch", "8", "--seq", "256", "--steps", "8"]
 
@@ -297,6 +324,178 @@ def check_scatter_swap(torch, sa, results):
           f"{lib_ms:.4f} ms")
 
 
+PAGED_PS, PAGED_NP = 16, 64   # the paged main path: max_seq 1024, 16-row pages
+
+
+def bf16_ulps(torch, a, b) -> int:
+    """Largest distance of two bf16 tensors in units of the last place,
+    across zero too (sign-magnitude bits mapped to ordered integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def paged_state(torch, np, *, G, hd, qd, pd, pos, act, shared, seed, B=8,
+                KV=8):
+    """A valid paged decode state on the card: a shuffled page numbering,
+    entries past each slot's ``pos`` unmapped (the null page 0), and the
+    slots in ``shared`` mapping the same first two pages (none of them
+    writes there: their pos >= 2 pages)."""
+    rng = np.random.default_rng(seed)
+    P = B * PAGED_NP + 1
+    tbl = (1 + rng.permutation(P - 1))[:B * PAGED_NP].reshape(B, PAGED_NP)
+    for b in shared:
+        if pos[b] < 2 * PAGED_PS:
+            raise ValueError("a slot sharing prefix pages would write one")
+        tbl[b, :2] = tbl[shared[0], :2]
+    for b, p in enumerate(pos):
+        tbl[b, p // PAGED_PS + 1:] = 0
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    return dict(
+        q=rn(B, 1, KV * G, hd).to(qd), nk=rn(B, KV, hd), nv=rn(B, KV, hd),
+        kp=rn(P, PAGED_PS, KV, hd).to(pd), vp=rn(P, PAGED_PS, KV, hd).to(pd),
+        pos=torch.tensor(pos, dtype=torch.int32, device="cuda"),
+        tbl=torch.tensor(tbl, dtype=torch.int32, device="cuda"),
+        act=torch.tensor(act, dtype=torch.bool, device="cuda"))
+
+
+def gathered(torch, pool, tbl):
+    """Each slot's dense view [B, NP * ps, KV, hd] through the table."""
+    P, ps, KV, hd = pool.shape
+    ridx = (tbl.long()[:, :, None] * ps
+            + torch.arange(ps, device=tbl.device)).reshape(tbl.shape[0], -1)
+    return pool.view(P * ps, KV, hd)[ridx]
+
+
+def check_paged_decode_attention(torch, np, da, results):
+    """The fused paged kernel against its plain version (o within the
+    dense kernel's tolerance, pools bitwise outside the null page 0) and
+    against the dense kernel on the gathered view at equal block_k
+    (bitwise), then its time at the main path's shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    # pos: first / last row of a page (16, 31, 47, 64, 1023), long and
+    # short contexts; slots 3 and 7 inactive; 2, 6, 7 share prefix pages
+    pos = [16, 31, 200, 511, 900, 1023, 47, 64]
+    act = [True, True, True, False, True, True, True, False]
+    cases = [  # name, G, hd, q dtype, pool dtype, window, softcap
+        ("main G2 hd128 bf16", 2, 128, bf16, bf16, 0, 0.0),
+        ("G1 f32 q", 1, 128, f32, bf16, 0, 0.0),
+        ("G8 hd64 f32 q", 8, 64, f32, bf16, 0, 0.0),
+        ("G2 hd64 bf16", 2, 64, bf16, bf16, 0, 0.0),
+        ("window 100", 2, 128, f32, bf16, 100, 0.0),
+        ("softcap 30", 2, 128, f32, bf16, 0, 30.0),
+        ("f32 pools", 2, 128, f32, f32, 0, 0.0),
+    ]
+    worst = 0.0
+    for i, (name, G, hd, qd, pd, window, softcap) in enumerate(cases):
+        x = paged_state(torch, np, G=G, hd=hd, qd=qd, pd=pd, pos=pos,
+                        act=act, shared=(2, 6, 7), seed=10 + i)
+        kw = dict(window=window, softcap=softcap)
+        kk, kv = x["kp"].clone(), x["vp"].clone()
+        pk, pv = x["kp"].clone(), x["vp"].clone()
+        o, _, _ = da.paged_decode_attention_cuda(
+            x["q"], x["nk"], x["nv"], kk, kv, x["pos"], x["tbl"], x["act"],
+            **kw)
+        r, _, _ = da.paged_decode_attention_plain(
+            x["q"], x["nk"], x["nv"], pk, pv, x["pos"], x["tbl"], x["act"],
+            **kw)
+        od = da.decode_attention_cuda(
+            x["q"], gathered(torch, kk, x["tbl"]),
+            gathered(torch, kv, x["tbl"]), x["pos"], block_k=128, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - r.float()).abs()
+        if qd == f32:
+            ok_o = bool((err <= ATTN_F32_ATOL
+                         + ATTN_F32_RTOL * r.float().abs()).all())
+            tol_s = f"rtol {ATTN_F32_RTOL} atol {ATTN_F32_ATOL}"
+        else:
+            ok_o = bf16_ulps(torch, o, r) <= 1
+            tol_s = "1 bf16 ulp"
+        ok_pools = (torch.equal(kk[1:], pk[1:]) and torch.equal(kv[1:], pv[1:])
+                    and not torch.equal(kk[1:], x["kp"][1:]))
+        ok_dense = torch.equal(o, od)
+        ok = ok_o and ok_pools and ok_dense and bool(torch.isfinite(o).all())
+        print(f"paged_decode_attention [{name}] B8 KV8 G{G} hd{hd} ps "
+              f"{PAGED_PS} q {str(qd)[6:]} pools {str(pd)[6:]}, shuffled "
+              f"table, shared prefix pages, 2 inactive: max|kernel-plain| "
+              f"{err.max().item():.3g} ({tol_s}), pools bitwise outside "
+              f"page 0 {ok_pools}, bitwise == dense kernel on the gathered "
+              f"view (block_k 128) {ok_dense}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged_decode_attention [{name}] "
+                                 f"disagrees")
+        if name.startswith("main"):
+            worst = err.max().item()
+    time_paged_decode_attention(torch, np, da, results, worst)
+
+
+def time_paged_decode_attention(torch, np, da, results, worst):
+    """Device times at the main path's shapes (B 8, KV 8, G 2, hd 128,
+    ps 16, contexts 200-900, bf16): the paged kernel, the dense kernel at
+    the same contexts, the plain version, and gather + SDPA (several
+    calls: no one PyTorch call computes the fused function)."""
+    B, KV, G, hd, ps, NP = 8, 8, 2, 128, PAGED_PS, PAGED_NP
+    ctx = [int(c) for c in np.random.default_rng(4).integers(200, 901, B)]
+    x = paged_state(torch, np, G=G, hd=hd, qd=torch.bfloat16,
+                    pd=torch.bfloat16, pos=ctx, act=[True] * B, shared=(),
+                    seed=20)
+    copies = 8                         # > L2 between launches
+    kps = [x["kp"]] + [x["kp"].clone() for _ in range(copies - 1)]
+    vps = [x["vp"]] + [x["vp"].clone() for _ in range(copies - 1)]
+    cks = [gathered(torch, k, x["tbl"]) for k in kps]
+    cvs = [gathered(torch, v, x["tbl"]) for v in vps]
+    q, pos, tbl, act = x["q"], x["pos"], x["tbl"], x["act"]
+    nk, nv = x["nk"].bfloat16(), x["nv"].bfloat16()
+    C = NP * ps
+    valid = (torch.arange(C, device="cuda")[None, :]
+             <= pos[:, None].long())[:, None, None, :]
+    qt = q.transpose(1, 2)
+
+    def library(i):
+        ck = gathered(torch, kps[i % copies], tbl)
+        cv = gathered(torch, vps[i % copies], tbl)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=valid,
+            enable_gqa=True)
+
+    fns = {
+        "kernel": lambda i: da.paged_decode_attention_cuda(
+            q, nk, nv, kps[i % copies], vps[i % copies], pos, tbl, act),
+        "dense": lambda i: da.decode_attention_cuda(
+            q, cks[i % copies], cvs[i % copies], pos),
+        "plain": lambda i: da.paged_decode_attention_plain(
+            q, nk, nv, kps[i % copies], vps[i % copies], pos, tbl, act),
+        "gather+sdpa": library}
+    dev_ms = {k: graph_time_ms(f) for k, f in fns.items()}
+    eager_ms = {k: cuda_time_ms(f, 50) for k, f in fns.items()}
+    # bound: q, the new rows read; rows 0..pos-1 of K and V read once
+    # (row pos comes from the new row); o and the new rows written
+    rows = sum(ctx)
+    nbytes = (2 * q.nbytes + 2 * (nk.nbytes + nv.nbytes)
+              + rows * KV * hd * 2 * 2
+              + sum(c // ps + 1 for c in ctx) * 4)     # the table slices
+    flops = (rows + B) * KV * 2 * hd * 2 * G       # QK and PV
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    results["paged_decode_attention"] = dict(
+        max_abs_err=worst, ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=dev_ms["gather+sdpa"])
+    print(f"paged_decode_attention time B{B} KV{KV} G{G} hd{hd} ps{ps} "
+          f"bf16, contexts {ctx}: device (graph replay) kernel "
+          f"{dev_ms['kernel']:.4f} ms, dense kernel same contexts "
+          f"{dev_ms['dense']:.4f} ms, plain {dev_ms['plain']:.4f} ms, "
+          f"gather+sdpa (several calls) {dev_ms['gather+sdpa']:.4f} ms; "
+          f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB); "
+          f"eager per call kernel {eager_ms['kernel']:.4f} ms, dense "
+          f"{eager_ms['dense']:.4f} ms, plain {eager_ms['plain']:.4f} ms, "
+          f"gather+sdpa {eager_ms['gather+sdpa']:.4f} ms")
+
+
 # --------------------------------------------------------------------- #
 # phase 4 + 5: the serving path at full width
 # --------------------------------------------------------------------- #
@@ -403,37 +602,101 @@ def teacher_forced(torch, np):
             raise AssertionError(f"teacher-forced {dtype} logits disagree")
 
 
-def profile_decode(torch, np):
+def decode_stepper(torch, np, cfg, params, paged):
+    """A steady full-width decode step over 8 slots primed with
+    300-900-token contexts (the same prompts for both layouts; bf16
+    cache, kernel attention; ``paged``: 16-row pages in order after the
+    null page).  Returns ``(step, lengths)``; each ``step()`` decodes one
+    token per slot and syncs on the host, as the server does."""
+    from repro_torch.models import model as model_lib
+
+    rng = np.random.default_rng(3)
+    B, max_seq = 8, 1024
+    lengths = rng.integers(300, 900, B)
+    prompt = rng.integers(0, cfg.vocab_size, (B, int(lengths.max())))
+    kw, table = {}, None
+    if paged:
+        table = (1 + np.arange(B * PAGED_NP)).reshape(B, PAGED_NP)
+        cache = model_lib.init_paged_cache(cfg, B, B * PAGED_NP + 1,
+                                           PAGED_PS, max_seq, device="cuda")
+        kw = dict(page_table=table, begin=np.zeros(B, np.int32))
+    else:
+        cache = model_lib.init_cache(cfg, B, max_seq, device="cuda")
+    for s in range(0, prompt.shape[1], 128):
+        model_lib.prefill_into_slots(
+            params, cfg, cache,
+            torch.as_tensor(prompt[:, s:s + 128], device="cuda"), lengths,
+            chunk_start=s, **kw)
+    pos = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    tok = torch.zeros(B, 1, dtype=torch.int64, device="cuda")
+    tbl = (None if table is None else
+           torch.as_tensor(table, dtype=torch.int32, device="cuda"))
+
+    def step():
+        nonlocal pos, tok
+        lg, _ = model_lib.decode_step(params, cfg, cache, tok, pos,
+                                      attn_impl="kernel", page_table=tbl)
+        tok = lg.argmax(-1, keepdim=True).cpu().to("cuda")
+        pos = pos + 1
+
+    return step, lengths
+
+
+def paged_vs_dense_steps(torch, np):
+    """The paged decode step against the dense one at realistic contexts
+    (``decode_stepper``: 8 slots, 300-900 rows, the same weights and
+    prompts), in alternating segments (dense, paged, paged, dense, ...)
+    of 6 steps, so drift of the shared host falls on both: wall ms per
+    step, median of each layout and the median of the per-pair ratios."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(ARCH)
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    steps = {"dense": decode_stepper(torch, np, cfg, params, False)[0],
+             "paged": decode_stepper(torch, np, cfg, params, True)[0]}
+    for f in steps.values():
+        for _ in range(2):
+            f()
+    ms = {"dense": [], "paged": []}
+    seg = {"dense": [], "paged": []}
+    for i in range(8):
+        name = ("dense", "paged")[(i + i // 2) % 2]       # d p p d d p p d
+        got = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            steps[name]()
+            got.append((time.perf_counter() - t0) * 1e3)
+        ms[name] += got
+        seg[name].append(float(np.median(got)))
+    ratio = float(np.median(np.asarray(seg["paged"]) / np.asarray(seg["dense"])))
+    print(f"paged vs dense decode step ({ARCH}, bf16, B8, contexts 300-900, "
+          f"kernel attention, 4 alternating 6-step segments each): wall "
+          f"ms/step median dense {np.median(ms['dense']):.3f} paged "
+          f"{np.median(ms['paged']):.3f}; segment medians dense "
+          f"{[round(x, 3) for x in seg['dense']]} paged "
+          f"{[round(x, 3) for x in seg['paged']]}; median paged/dense "
+          f"ratio of paired segments {ratio:.4f}")
+    del params, steps
+    torch.cuda.empty_cache()
+
+
+def profile_decode(torch, np, paged=False):
     """Where a full-width decode step's time goes: 4 steady bf16 decode
-    steps (8 slots, 300-900-token contexts, kernel attention) under
-    ``torch.profiler``: wall per step, device busy per step, top kernels."""
+    steps (``decode_stepper``: 8 slots, 300-900-token contexts, kernel
+    attention; ``paged``: through 16-row pages and the fused paged
+    kernel) under ``torch.profiler``: wall per step, device busy per
+    step, top kernels.  Returns the device ms per step by kind."""
     from torch.autograd import DeviceType
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
 
     cfg = get_config(ARCH)
-    rng = np.random.default_rng(3)
-    B, max_seq = 8, 1024
-    lengths = rng.integers(300, 900, B)
-    prompt = rng.integers(0, cfg.vocab_size, (B, int(lengths.max())))
+    B = 8
     params = model_lib.init_params(
         cfg, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
-    cache = model_lib.init_cache(cfg, B, max_seq, device="cuda")
-    for s in range(0, prompt.shape[1], 128):
-        model_lib.prefill_into_slots(
-            params, cfg, cache,
-            torch.as_tensor(prompt[:, s:s + 128], device="cuda"), lengths,
-            chunk_start=s)
-    pos = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
-    tok = torch.zeros(B, 1, dtype=torch.int64, device="cuda")
-
-    def step():
-        nonlocal pos, tok
-        lg, _ = model_lib.decode_step(params, cfg, cache, tok, pos,
-                                      attn_impl="kernel")
-        tok = lg.argmax(-1, keepdim=True).cpu().to("cuda")
-        pos = pos + 1
-
+    step, lengths = decode_stepper(torch, np, cfg, params, paged)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -449,18 +712,19 @@ def profile_decode(torch, np):
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    print(f"decode step profile ({ARCH}, bf16, B{B}, contexts "
+    label = "paged" if paged else "dense"
+    print(f"decode step profile, {label} ({ARCH}, bf16, B{B}, contexts "
           f"{int(lengths.min())}-{int(lengths.max())}, kernel attention, "
           f"{n} steps): wall {wall_ms:.2f} ms/step, device busy "
           f"{busy:.2f} ms/step, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.1%}")
-    groups = {"decode_attention (both passes)": 0.0, "gemm/gemv": 0.0,
+    groups = {"decode attention (both passes)": 0.0, "gemm/gemv": 0.0,
               "elementwise/copy": 0.0, "other": 0.0}
     for e in rows:
         name = e.key.lower()
         t = e.self_device_time_total / 1e3 / n
         if "decode_attention" in name:
-            groups["decode_attention (both passes)"] += t
+            groups["decode attention (both passes)"] += t
         elif any(w in name for w in ("gemm", "gemv", "cutlass", "sm90_",
                                      "matmul", "nvjet")):
             groups["gemm/gemv"] += t
@@ -474,8 +738,213 @@ def profile_decode(torch, np):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
               f"{e.count // n:5d} calls/step  {e.key[:70]}")
-    (OUT / "decode_profile.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=40))
+    (OUT / f"decode_profile_{label}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=40))
+    del params, step
+    return groups
+
+# --------------------------------------------------------------------- #
+# phases 10-13: paged KV serving (slice 3)
+# --------------------------------------------------------------------- #
+
+
+def dense_streams(torch, np, reqs, *, slots, prefill_chunk, seed,
+                  steps_per_turn=8):
+    """The same requests (prompts, tenants, budgets) through a dense
+    ``DecodeServer`` with the launcher's weights and demo tenants (the
+    same seed): the reference a paged run's streams must equal.  Returns
+    the streams and the run's decode step ms (p50, p99)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_demo_registry
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_config import SchedConfig, ServeConfig
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+
+    cfg = get_config(ARCH)
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(seed),
+        device="cuda")
+    registry, _ = make_demo_registry(params, 2)
+    srv = DecodeServer(cfg, params, ServeConfig(
+        batch_slots=slots, max_seq=1024, attn_impl="kernel",
+        prefill_chunk=prefill_chunk,
+        sched=SchedConfig(steps_per_turn=steps_per_turn)),
+        registry=registry)
+    del params
+    out = [Request(rid=r.rid, prompt=np.asarray(r.prompt),
+                   max_new_tokens=r.max_new_tokens, adapter_id=r.adapter_id)
+           for r in reqs]
+    for r in out:
+        srv.submit(r)
+    srv.run_until_drained()
+    step_ms = srv.stats()["decode"]["step_ms"]
+    del srv, registry
+    torch.cuda.empty_cache()
+    return [r.out for r in out], (step_ms["p50"], step_ms["p99"])
+
+
+def paged_main_path(torch, np, ops):
+    """``--paged`` through the launcher at full width and depth (kernel
+    attention, 8 slots, max_seq 1024, 16 requests, base + 2 demo
+    tenants sharing a 24-token system prompt; 2-step turns, so a tenant
+    is admitted in several waves and later waves map the first wave's
+    prefix pages): streams equal to a dense run of the same requests,
+    one paged-kernel launch per layer per decode step and no dense
+    decode-attention launch, prefix hits.  The prefill
+    chunk is 32, so every prompt (28-31 tokens) is one chunk in both
+    layouts and rows computed for one request are bitwise the rows
+    another maps (the JAX package's condition for paged == dense under
+    prefix sharing: prompt lengths aligned with the chunk grid)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    layers = get_config(ARCH).num_layers
+    print(f"paged main path: python -m repro_torch.launch.serve "
+          f"{' '.join(PAGED_ARGV)}")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    srv, reqs = serve.run(PAGED_ARGV)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = srv.stats()
+    kv, dec = st["kv"], st["decode"]
+    steps = dec["steps"]
+    streams = [r.out for r in reqs]
+    del srv
+    torch.cuda.empty_cache()
+    print(f"paged main path: {sum(map(len, streams))} tokens, {wall:.2f} s "
+          f"wall including init, {steps} decode steps, step ms p50 "
+          f"{dec['step_ms']['p50']:.2f} p99 {dec['step_ms']['p99']:.2f}, "
+          f"launches {launches}, peak device memory {peak:.2f} GiB; kv: "
+          f"{kv['num_pages']} pages x {kv['page_size']}, prefix hits "
+          f"{kv['prefix_hit_pages']} pages ({kv['prefix_hit_tokens']} "
+          f"tokens), cow splits {kv['cow_split']}, allocs "
+          f"{kv['page_alloc']}, frees {kv['page_free']}")
+    for r in reqs[:4]:
+        print(f"  req {r.rid} [{r.adapter_id or 'base'}] prompt "
+              f"{len(r.prompt)} -> {r.out[:12]}...")
+    dense, (d50, d99) = dense_streams(torch, np, reqs, slots=8,
+                                      prefill_chunk=32, seed=0,
+                                      steps_per_turn=2)
+    same = streams == dense
+    print(f"paged main path: streams equal to a dense run of the same "
+          f"requests (prefill chunk 32, 2-step turns, kernel attention): "
+          f"{same}; the dense run's step ms p50 {d50:.2f} p99 {d99:.2f}")
+    fails = []
+    if sum(map(len, streams)) != 16 * 32:
+        fails.append("tokens")
+    if not same:
+        fails.append("streams differ from the dense run")
+    if launches["paged_decode_attention"] != layers * steps:
+        fails.append(f"paged launches {launches['paged_decode_attention']}"
+                     f" != {layers} layers x {steps} decode steps")
+    if launches["decode_attention"] or not launches["scatter_swap"]:
+        fails.append("dense decode attention launched, or no swap")
+    if not kv["prefix_hit_pages"]:
+        fails.append("no prefix hits")
+    if fails:
+        raise AssertionError(f"paged main path: {fails}")
+    return launches, streams
+
+
+def paged_tight_pool(torch, np):
+    """16 slots over the auto page count of 8 slots (513 pages), one
+    tenant (the base model), so the page pool and not the scheduler
+    bounds admission: prompts of 192-896 tokens (multiples of the
+    64-token prefill chunk, so rows do not depend on which requests are
+    primed together) reserve their worst case at admission, so fewer
+    than 16 are ever live; every request finishes, and the streams equal
+    a dense 16-slot run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_config import KVConfig, ServeConfig
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+
+    cfg = get_config(ARCH)
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(5), device="cuda")
+    srv = DecodeServer(cfg, params, ServeConfig(
+        batch_slots=16, max_seq=1024, attn_impl="kernel", prefill_chunk=64,
+        kv=KVConfig(layout="paged", page_size=PAGED_PS,
+                    pages=8 * PAGED_NP + 1)))
+    del params
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, 64 * int(rng.integers(3, 15))),
+        max_new_tokens=32) for i in range(16)]
+    for r in reqs:
+        srv.submit(r)
+    most = [0]
+
+    def watch(s):
+        most[0] = max(most[0], sum(r is not None for r in s.active))
+    t0 = time.monotonic()
+    srv.run_until_drained(on_step=watch)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    kv = srv.stats()["kv"]
+    need = sum(-(-(len(r.prompt) + 32) // PAGED_PS) for r in reqs)
+    del srv
+    torch.cuda.empty_cache()
+    dense, _ = dense_streams(torch, np, reqs, slots=16, prefill_chunk=64,
+                             seed=5)
+    same = [r.out for r in reqs] == dense
+    done = all(r.done and len(r.out) == 32 for r in reqs)
+    print(f"tight pool: 16 slots over {kv['num_pages']} pages (the auto "
+          f"count of 8 slots), one tenant, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, {need} pages reserved if "
+          f"all were live: most slots active at once {most[0]}, all "
+          f"finished {done}, {wall:.2f} s, allocs {kv['page_alloc']}, "
+          f"streams equal to a dense 16-slot run: {same}")
+    if not (done and same and most[0] < 16):
+        raise AssertionError("tight pool: unfinished, unequal streams or "
+                             "no throttling")
+
+
+def paged_speculative(torch, np, ops, plain_streams):
+    """``--paged --speculate 4``: streams equal to the plain paged run,
+    and one paged-kernel launch per layer per decode pass: n draft plus
+    n + 1 verify passes per round (``spec.passes``) and one per plain
+    step (a round whose budget leaves no draft), no dense launch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    layers = get_config(ARCH).num_layers
+    argv = PAGED_ARGV + ["--speculate", "4"]
+    print(f"speculative: python -m repro_torch.launch.serve {' '.join(argv)}")
+    ops.reset_launches()
+    t0 = time.monotonic()
+    srv, reqs = serve.run(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    st = srv.stats()
+    sp, kv = st["spec"], st["kv"]
+    plain = st["decode"]["steps"] - sp["rounds"]
+    launches = dict(ops.LAUNCHES)
+    del srv
+    torch.cuda.empty_cache()
+    same = [r.out for r in reqs] == plain_streams
+    print(f"speculative: {wall:.2f} s wall including init, "
+          f"{sp['rounds']} rounds, acceptance {sp['acceptance_rate']:.3f} "
+          f"({sp['accepted']} / {sp['drafted']}), "
+          f"{sp['tokens_per_step']:.2f} tokens per round, "
+          f"{sp['rollbacks']} rounds with a rejection, rollback pages "
+          f"{kv['spec_rollback_pages']}, flips {sp['flips']}, step ms "
+          f"p50 {st['decode']['step_ms']['p50']:.2f}, {sp['passes']} "
+          f"decode passes in rounds + {plain} plain steps, launches "
+          f"{launches}; streams equal to the plain paged run: {same}")
+    want = layers * (sp["passes"] + plain)
+    if not same or launches["paged_decode_attention"] != want \
+            or launches["decode_attention"]:
+        raise AssertionError(
+            f"speculative: streams equal {same}, paged launches "
+            f"{launches['paged_decode_attention']} (want {layers} layers x "
+            f"({sp['passes']} + {plain}) passes = {want}), dense launches "
+            f"{launches['decode_attention']}")
+
 
 # --------------------------------------------------------------------- #
 # phases 6-9: training (masked Adam, the BlockLLM trainers)
@@ -1019,6 +1488,7 @@ def main() -> int:
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
         wants = {"decode_attention": ["Li4ELi2E"],        # hd 128, G 2
+                 "paged_decode_attention": ["Li4ELi2ELb1E"],
                  "scatter_swap": ["scatter_swap"],
                  # f32 p, stored mask: the main path's instantiations
                  "masked_adam": ["masked_adam_kernelIfLb0ELb1E",
@@ -1030,7 +1500,8 @@ def main() -> int:
                       f"{info['compiled']}, max registers over all entries "
                       f"{most}")
             for entry, line in rows:
-                short = entry[entry.find(name):][:60]
+                at = entry.find("decode_attention_kernel")
+                short = entry[entry.find(name) if at < 0 else at:][:60]
                 print(f"    {short}: "
                       f"{line.replace('ptxas info    : ', '')}")
 
@@ -1088,27 +1559,51 @@ def main() -> int:
     # phase 9: checkpoint -> crash -> resume -> export -> serve
     checkpoint_export_serve(torch, np, ops)
 
-    # phase 10: launches are each kernel's count on its path's run:
-    # serving main path, training main path (Q8), the f32 API run
+    # phase 10: the fused paged kernel against its plain version and the
+    # dense kernel, and its times
+    check_paged_decode_attention(torch, np, da, results)
+    torch.cuda.empty_cache()
+
+    # phase 11: the paged main path through the launcher, against dense
+    p_launches, p_streams = paged_main_path(torch, np, ops)
+
+    # phase 12: a tight page pool, then speculative decoding
+    paged_tight_pool(torch, np)
+    paged_speculative(torch, np, ops, p_streams)
+
+    # phase 13: the paged decode step against the dense one, alternating,
+    # and its profile beside the dense one's
+    paged_vs_dense_steps(torch, np)
+    profile_decode(torch, np, paged=True)
+    torch.cuda.empty_cache()
+
+    # summary: launches are each kernel's count on its path's run:
+    # serving main path, training main path (Q8), the f32 API run, the
+    # paged serving main path
     launches = {**{k: launches[k] for k in SERVE_KERNELS},
+                "paged_decode_attention": p_launches["paged_decode_attention"],
                 "masked_adam_q8": t_launches["masked_adam_q8"],
                 "masked_adam": f32_launches["masked_adam"]}
     path_of = {"decode_attention": "serving main path",
                "scatter_swap": "serving main path",
+               "paged_decode_attention": "paged serving main path",
                "masked_adam_q8": "training main path (blockllm+q8)",
                "masked_adam": "blockllm f32 run (fused_update='kernel')"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"decode_attention": csrc + "decode_attention.cu",
                "scatter_swap": csrc + "scatter_swap.cu",
+               "paged_decode_attention": csrc + "paged_decode_attention.cu",
                "masked_adam": csrc + "masked_adam.cu",
                "masked_adam_q8": csrc + "masked_adam.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:186",
                 "scatter_swap": "src/repro/kernels/scatter_apply.py:81",
+                "paged_decode_attention":
+                    "src/repro/kernels/decode_attention.py:352",
                 "masked_adam": "src/repro/kernels/masked_adam.py:152",
                 "masked_adam_q8": "src/repro/kernels/masked_adam.py:117"}
     kernels = []
-    for name in ("decode_attention", "scatter_swap", "masked_adam",
-                 "masked_adam_q8"):
+    for name in ("decode_attention", "scatter_swap", "paged_decode_attention",
+                 "masked_adam", "masked_adam_q8"):
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],

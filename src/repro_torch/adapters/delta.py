@@ -203,6 +203,18 @@ def revert_delta(params: Pytree, displaced: SparseDelta, *,
     return out
 
 
+def flip_delta(params: Pytree, other_side: SparseDelta, *, mode: str = "auto"
+               ) -> Tuple[Pytree, SparseDelta]:
+    """One half of a base <-> adapter flip on weights the caller owns: an
+    in-place ``apply_delta`` with no fingerprint check, through the row
+    scatter-swap.  Returns ``(flipped_params, other_side')``; applying
+    ``other_side'`` flips back bit-exactly.  Self-speculative serving
+    flips twice per round (draft under the base, verify under the
+    adapter), moving O(delta rows) bytes each time."""
+    return apply_delta(params, other_side, mode=mode, donate=True,
+                       check_fingerprint=False)
+
+
 # ---------------------------------------------------------------------- #
 # serialization (the checkpointer's atomic payload format)
 # ---------------------------------------------------------------------- #

@@ -27,14 +27,15 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"decode_attention": "decode_attention.cu",
+           "paged_decode_attention": "paged_decode_attention.cu",
            "scatter_swap": "scatter_swap.cu",
            "masked_adam": "masked_adam.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # one counter per kernel; masked_adam.cu holds two
-KERNELS = ("decode_attention", "scatter_swap", "masked_adam",
-           "masked_adam_q8")
+KERNELS = ("decode_attention", "paged_decode_attention", "scatter_swap",
+           "masked_adam", "masked_adam_q8")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # per kernel: seconds, whether nvcc ran, and nvcc's output (-Xptxas -v)
 BUILD_INFO: Dict[str, dict] = {}
@@ -72,6 +73,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "decode_attention":
         fns = [(lib.decode_attention_launch,
                 [p] * 6 + [i] * 9 + [f, f, i, p])]
+    elif name == "paged_decode_attention":
+        fns = [(lib.paged_decode_attention_launch,
+                [p] * 10 + [i] * 9 + [f, f, i, p])]
     elif name == "scatter_swap":
         fns = [(lib.scatter_swap_launch, [p, p, p, p, i, n, p])]
     else:
@@ -97,9 +101,12 @@ def build_all() -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     t0 = time.monotonic()
+    # every source includes whichever shared headers it needs: a header
+    # change rebuilds them all
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     for name, src in SOURCES.items():
         path = CSRC / src
-        digest = hashlib.sha256(path.read_bytes()
+        digest = hashlib.sha256(path.read_bytes() + headers
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         so = out_dir / f"{name}-{digest[:16]}.so"
         if so.exists():

@@ -1,7 +1,8 @@
 """Public kernel entry points: dispatch, launch counters, profiling.
 
 Counterpart of ``repro.kernels.ops`` for the ported kernels: decode
-attention, the row scatter-swap and masked Adam (f32 and Q8 moments).
+attention (dense and the fused paged write+attend), the row
+scatter-swap and masked Adam (f32 and Q8 moments).
 Every op takes ``mode``:
 
 - ``auto``: the Hopper kernel for a CUDA tensor, the plain PyTorch
@@ -141,6 +142,33 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, ring=False,
         block_k=block_k, dtype_bytes=k_cache.element_size())
     return _profiled_call("decode_attention", fn, (q, k_cache, v_cache, pos),
                           kw, nb, q.device)
+
+
+def paged_decode_attention(q, new_k, new_v, k_pool, v_pool, pos, page_table,
+                           active, *, window=0, softcap=0.0,
+                           mode: str = "auto", block_k: int = 128):
+    """One-token fused write+attend against paged KV pools.
+
+    q [B, 1, H, hd]; new_k/new_v [B, KV, hd] (the new token's rows);
+    pools [P, page_size, KV, hd], updated in place; page_table [B, NP]
+    int32; active [B] bool (inactive slots write nothing).  Returns
+    ``(o, k_pool, v_pool)``.  The row write happens inside the op, so a
+    decode step runs one op per layer.  The kernel's reads scale with
+    ``pos``; with equal ``block_k`` it equals ``decode_attention`` on the
+    gathered view bit for bit."""
+    fn = (da.paged_decode_attention_cuda if route(mode, q) == "kernel"
+          else da.paged_decode_attention_plain)
+    args = (q, new_k, new_v, k_pool, v_pool, pos, page_table, active)
+    kw = dict(window=window, softcap=softcap, block_k=block_k)
+    if _PROFILER is None:
+        return fn(*args, **kw)
+    nb = 2 * q.nbytes + da.paged_cache_read_bytes(
+        pos.cpu(), num_pages_per_slot=page_table.shape[1],
+        page_size=k_pool.shape[1], kv_heads=k_pool.shape[2],
+        head_dim=k_pool.shape[3], window=window,
+        dtype_bytes=k_pool.element_size())
+    return _profiled_call("paged_decode_attention", fn, args, kw, nb,
+                          q.device)
 
 
 # --------------------------------------------------------------------- #

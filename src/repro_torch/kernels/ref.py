@@ -32,6 +32,34 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *, window=0, ring=False,
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
+def paged_decode_attention_ref(q, new_k, new_v, k_pool, v_pool, pos,
+                               page_table, active, *, window=0, softcap=0.0,
+                               scale=None):
+    """Oracle for ``paged_decode_attention``: q [B, 1, H, hd]; new_k/new_v
+    [B, KV, hd]; pools [P, ps, KV, hd]; page_table [B, NP] int32; active
+    [B] bool.  Scatters each active slot's new row into copies of the
+    flattened pools, gathers the dense per-slot view through the page
+    table and runs ``decode_attention_ref`` on it.  Returns ``(o, k_pool',
+    v_pool')``; the inputs are not modified."""
+    P, ps, KV, hd = k_pool.shape
+    B, NP = page_table.shape
+    pos_b = torch.as_tensor(pos, dtype=torch.int32,
+                            device=q.device).reshape(-1).expand(B).long()
+    act = torch.as_tensor(active, dtype=torch.bool, device=q.device)
+    tbl = torch.as_tensor(page_table, device=q.device).long()
+    phys = tbl.gather(1, (pos_b // ps)[:, None])[:, 0]
+    widx = (phys * ps + pos_b % ps)[act]
+    kf = k_pool.reshape(P * ps, KV, hd).clone()
+    vf = v_pool.reshape(P * ps, KV, hd).clone()
+    kf[widx] = new_k[act].to(k_pool.dtype)
+    vf[widx] = new_v[act].to(v_pool.dtype)
+    ridx = (tbl[:, :, None] * ps + torch.arange(ps, device=q.device)
+            ).reshape(B, NP * ps)
+    o = decode_attention_ref(q, kf[ridx], vf[ridx], pos_b, window=window,
+                             softcap=softcap, scale=scale)
+    return o, kf.reshape(k_pool.shape), vf.reshape(v_pool.shape)
+
+
 def scatter_swap_ref(full, idx, rows):
     """Oracle for ``scatter_swap``: full [G, C]; idx [K] unique; rows
     [K, C].  Returns (a copy of full with rows written at idx, the

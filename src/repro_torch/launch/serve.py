@@ -17,9 +17,22 @@ through the hand-written kernel, ``full`` through the grouped-einsum
 PyTorch path.  Prompts are primed by chunked batched prefill
 (``--prefill-chunk``, 0 = per-token priming).
 
-Flags for parts not ported yet (``--paged``, ``--speculate``,
-``--cache-bytes``) parse, and the server raises ``NotImplementedError``
-for them (ROADMAP queue A).
+PagedKV (``--paged``): the KV cache becomes a pool of
+``--kv-page-size``-row pages (``--kv-pages`` total, 0 = the dense
+equivalent) addressed through per-slot page tables, with continuous
+admission against page capacity and copy-on-write prefix sharing
+(``--no-prefix-share`` turns it off).  The demo requests then share a
+system prompt of 1.5 pages, so full and partial prefix pages register;
+the ``paged KV:`` line reports allocations, COW splits and prefix hits.
+Decode attention runs through the fused paged write+attend kernel.
+
+SpecServe (``--speculate N``): the resident base model drafts N tokens
+per round, the tenant verifies all N + 1 positions, and the longest
+agreeing prefix is accepted; streams equal plain greedy decoding.  The
+``speculative:`` line reports rounds and acceptance.
+
+``--cache-bytes`` (the device AdapterCache) parses, and the server
+raises ``NotImplementedError`` for it (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -61,16 +74,22 @@ def add_serve_config_flags(ap: argparse.ArgumentParser) -> None:
                          "(0 = per-token priming)")
     kv = ap.add_mutually_exclusive_group()
     kv.add_argument("--paged", action="store_true",
-                    help="paged KV cache (not ported yet)")
+                    help="paged KV cache: page pool + per-slot page "
+                         "tables, continuous admission, COW prefix "
+                         "sharing")
     kv.add_argument("--dense", action="store_true",
                     help="dense [slots, max_seq] KV cache (default)")
-    ap.add_argument("--kv-page-size", type=int, default=16)
-    ap.add_argument("--kv-pages", type=int, default=0)
-    ap.add_argument("--no-prefix-share", action="store_true")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="rows per KV page (--paged)")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="KV pages in the pool, the null page included "
+                         "(0 = slots * max_seq / page size + 1)")
+    ap.add_argument("--no-prefix-share", action="store_true",
+                    help="paged: do not share prompt-prefix pages")
     sp = ap.add_mutually_exclusive_group()
     sp.add_argument("--speculate", type=int, default=0, metavar="N",
-                    help="self-speculative decoding (not ported yet; "
-                         "must be 0)")
+                    help="self-speculative decoding: the base drafts N "
+                         "tokens per round, the tenant verifies them")
     sp.add_argument("--no-speculate", action="store_true")
     ap.add_argument("--ms-per-step", default="1.0",
                     help="SLO conversion: decode-step time in ms, or "
@@ -130,7 +149,9 @@ def make_demo_registry(params, n: int):
     return registry, ids
 
 
-def main(argv=None):
+def run(argv=None):
+    """Parse ``argv``, serve the demo request set, print the summary;
+    returns ``(server, requests)``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama-60m")
     ap.add_argument("--reduce", type=int, default=4,
@@ -209,8 +230,16 @@ def main(argv=None):
                        tracer=tracer, device=device)
     del params       # the server holds its own copy when it swaps adapters
     rng = np.random.default_rng(args.seed)
+    # paged demo requests share a system prompt of 1.5 pages, so full and
+    # partial prefix pages register and later admissions map them (and
+    # the partial page's first decode write splits it copy-on-write)
+    sys_prompt = (rng.integers(0, cfg.vocab_size,
+                               args.kv_page_size + args.kv_page_size // 2)
+                  if args.paged else np.zeros(0, np.int64))
     reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab_size, 4 + i % 4),
+                    prompt=np.concatenate(
+                        [sys_prompt,
+                         rng.integers(0, cfg.vocab_size, 4 + i % 4)]),
                     max_new_tokens=args.new_tokens,
                     adapter_id=tenants[i % len(tenants)],
                     slo_ms=args.slo_ms or None)
@@ -231,12 +260,32 @@ def main(argv=None):
     tok = sum(len(r.out) for r in reqs)
     print(f"served {len(reqs)} requests, {tok} tokens in {dt:.2f}s "
           f"({tok / dt:.1f} tok/s, {srv.steps} decode steps)")
+    step_ms = srv.stats()["decode"]["step_ms"]
+    if step_ms["count"]:
+        print(f"decode step ms: p50 {step_ms['p50']:.2f} p99 "
+              f"{step_ms['p99']:.2f} over {step_ms['count']} steps")
     print(f"prefill: {srv.prefill_prompt_tokens} prompt tokens in "
           f"{srv.prefill_dispatches} dispatches "
           f"({'chunked' if srv._slot_prefill else 'per-token'}, "
           f"chunk {srv.prefill_chunk})"
           + (f"; ms/step EMA {srv.ms_per_step:.2f}"
              if args.ms_per_step == "auto" else ""))
+    if srv.speculate:
+        sps = srv.stats()["spec"]
+        print(f"speculative: {sps['rounds']} rounds, "
+              f"{sps['drafted']} drafted / {sps['accepted']} accepted "
+              f"({sps['acceptance_rate']:.0%}), "
+              f"{sps['rollbacks']} rollbacks, {sps['flips']} flips, "
+              f"{sps['tokens_per_step']:.2f} tokens/round")
+    if srv.alloc is not None:
+        kvs = srv.stats()["kv"]
+        al = srv.alloc
+        print(f"paged KV: {al.num_pages} pages x {al.page_size} rows, "
+              f"{kvs['page_alloc']} allocs / {kvs['page_free']} frees, "
+              f"{kvs['cow_split']} COW splits, "
+              f"prefix hits {kvs['prefix_hit_pages']} pages "
+              f"({kvs['prefix_hit_tokens']} tokens), "
+              f"{kvs['pages_in_use']} in use at drain")
     if registry is not None:
         sched = srv.stats()["sched"]
         reg_stats = getattr(registry, "stats", dict)()
@@ -250,8 +299,13 @@ def main(argv=None):
         print(f"trace: {len(tracer)} events -> {p}")
     for r in reqs[:3]:
         tag = f" [{r.adapter_id or 'base'}]"
-        print(f"  req {r.rid}{tag}: {list(r.prompt)} -> {r.out}")
-    return reqs
+        print(f"  req {r.rid}{tag}: {np.asarray(r.prompt).tolist()} -> "
+              f"{r.out}")
+    return srv, reqs
+
+
+def main(argv=None):
+    return run(argv)[1]
 
 
 if __name__ == "__main__":

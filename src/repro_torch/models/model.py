@@ -20,9 +20,17 @@ the decode step writes row ``pos[b]`` of each slot only where
 ``active[b]``, which for attention-only blocks is equivalent to the
 JAX server's whole-cache blend under its active mask.
 
-Other families (MoE, recurrent, SSM, VLM, audio) and the paged and
-speculative-verify branches are not ported yet (ROADMAP queue A) and
-raise ``NotImplementedError``.
+Paged KV (``init_paged_cache``): global-attention blocks keep pools
+``[P, page_size, KV, hd]`` addressed through a per-slot page table
+(``runtime/paged_kv.py``); the decode step writes and attends through
+the table in one op (``ops.paged_decode_attention``, the fused kernel
+on the card), chunked prefill scatters its rows through it.  Row
+indices of a prefill chunk are computed on the host once per chunk and
+shared by every layer; the decode step copies the page table to the
+device once.
+
+Other families (MoE, recurrent, SSM, VLM, audio) are not ported yet
+(ROADMAP queue A) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
                                       ModelConfig)
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -151,6 +160,46 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return {"stages": stages}
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
+                     page_size: int, seq_len: int, dtype=torch.bfloat16,
+                     device=None) -> Pytree:
+    """Paged decode cache: global-attention blocks get pools ``{"pk",
+    "pv"}`` of ``[G, num_pages, page_size, KV, hd]`` (page 0 is the null
+    page of unmapped table entries); local-attention blocks keep their
+    dense ring ``{"k", "v"}`` of ``[G, batch, C, KV, hd]``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    stages = []
+    for pattern, groups in cfg.stages():
+        st = {}
+        for j, btype in enumerate(pattern):
+            if btype == BLOCK_GLOBAL_ATTN:
+                shape, names = (groups, num_pages, page_size, KV, hd), \
+                    ("pk", "pv")
+            else:
+                C = _attn_cache_len(cfg, btype, seq_len)
+                shape, names = (groups, batch, C, KV, hd), ("k", "v")
+            st[f"pos{j}"] = {n: torch.zeros(shape, dtype=dtype, device=dev)
+                             for n in names}
+        stages.append(st)
+    return {"stages": stages}
+
+
+def copy_cache_pages(cache, src, dst):
+    """Copy physical pages ``src -> dst`` in every pooled leaf, in place:
+    the device half of a copy-on-write split.  ``src``/``dst`` are equal-
+    length int sequences (host or device)."""
+    pools = [a for st in cache["stages"] for blk in st.values()
+             if "pk" in blk for a in blk.values()]
+    if pools:
+        d = torch.as_tensor(dst, dtype=torch.long, device=pools[0].device)
+        s = torch.as_tensor(src, dtype=torch.long, device=pools[0].device)
+        for a in pools:
+            a[:, d] = a[:, s]
+    return cache
+
+
 def supports_slot_prefill(cfg: ModelConfig) -> bool:
     """Chunked batched prefill needs every block to be attention and a
     token-only frontend (all the port serves)."""
@@ -158,9 +207,52 @@ def supports_slot_prefill(cfg: ModelConfig) -> bool:
             and all(t in ATTN_BLOCKS for t in cfg.layer_types()))
 
 
+def supports_paged_kv(cfg: ModelConfig) -> bool:
+    """Paged KV needs position-addressable K/V rows in every block and a
+    token-only frontend: the bar of chunked slot prefill."""
+    return supports_slot_prefill(cfg)
+
+
+def supports_spec_decode(cfg: ModelConfig) -> bool:
+    """Self-speculative serving needs slot prefill and every block
+    global: rejected draft rows roll back by position masking, which
+    ring-buffer local-attention rows do not allow (a write at p clobbers
+    the live row at p - C)."""
+    return (supports_slot_prefill(cfg)
+            and all(t == BLOCK_GLOBAL_ATTN for t in cfg.layer_types()))
+
+
+def supports_prefix_share(cfg: ModelConfig) -> bool:
+    """Prefix sharing covers the pooled caches only, so every block must
+    be global (local blocks keep per-slot ring rows)."""
+    return (supports_paged_kv(cfg)
+            and all(t == BLOCK_GLOBAL_ATTN for t in cfg.layer_types()))
+
+
 # ---------------------------------------------------------------------------
 # block apply
 # ---------------------------------------------------------------------------
+
+
+def _paged_decode_attend(cfg, q, k, v, cache, pos_b, page_table, active,
+                         attn_impl):
+    """Paged decode of a global block: write each active slot's new row
+    into its page and attend through the page table.  ``kernel`` is the
+    fused write+attend op; ``full`` writes, gathers the dense view and
+    runs the same ``attention_decode`` as the dense path (the JAX
+    package's XLA fallback), so both equal their dense counterparts."""
+    B = q.shape[0]
+    act = (torch.ones(B, dtype=torch.bool, device=q.device)
+           if active is None else active)
+    if attn_impl == "kernel":
+        o, _, _ = ops.paged_decode_attention(
+            q, k[:, 0], v[:, 0], cache["pk"], cache["pv"], pos_b,
+            page_table, act, softcap=cfg.attn_softcap)
+        return o
+    ck, cv = da.paged_write_gather(k[:, 0], v[:, 0], cache["pk"],
+                                   cache["pv"], pos_b, page_table, act)
+    return layers.attention_decode(q, ck, cv, pos_b,
+                                   softcap=cfg.attn_softcap)
 
 
 def _decode_attend(cfg, btype, q, k, v, cache, pos_b, active, attn_impl):
@@ -202,9 +294,11 @@ class PrefillRows:
     ``dst`` — rows past a prompt's end (and, ring, rows the chunk
     itself overwrites) are dropped, so ``dst`` is unique per slot."""
 
-    def __init__(self, lengths, chunk_start: int, S: int, device):
+    def __init__(self, lengths, chunk_start: int, S: int, device,
+                 table=None, begin=None):
         self.lengths = np.asarray(lengths, np.int64)
         self.chunk_start, self.S, self.device = chunk_start, S, device
+        self.table, self.begin = table, begin
         self._by_shape = {}
 
     def get(self, C: int, ring: bool):
@@ -225,11 +319,67 @@ class PrefillRows:
             self._by_shape[key] = t
         return self._by_shape[key]
 
+    def get_paged(self, ps: int):
+        """Paged pools (global blocks): ``(hist_rows, hist_pos, b, s,
+        dst)`` as ``get``, with rows of the flattened pool through the
+        host page ``table`` [B, NP]; chunk rows below a slot's ``begin``
+        (its shared-prefix match) are not written."""
+        key = ("paged", ps)
+        if key not in self._by_shape:
+            cs, S = self.chunk_start, self.S
+            tbl = np.asarray(self.table, np.int64)
+            begin = (np.zeros(len(tbl), np.int64) if self.begin is None
+                     else self.begin)
+            hp = np.arange(cs)
+            hist = tbl[:, hp // ps] * ps + hp % ps               # [B, cs]
+            pos_h = cs + np.arange(S)[None, :]
+            last = np.minimum(self.lengths, cs + S)[:, None]
+            valid = (pos_h < last) & (
+                pos_h >= np.asarray(begin, np.int64)[:, None])
+            bi, si = np.nonzero(valid)
+            p = pos_h[0, si]
+            dst = tbl[bi, p // ps] * ps + p % ps
+            self._by_shape[key] = [torch.as_tensor(a, device=self.device)
+                                   for a in (hist, hp, bi, si, dst)]
+        return self._by_shape[key]
+
+
+def _attend_chunk(cfg, window, q, k, v, kh, vh, kp, positions, store_dtype):
+    """Causal attention of a chunk over ``[history, the chunk]``; the
+    chunk's own k/v round-trip through the cache dtype, so scores match
+    what the per-token path reads back."""
+    kc = k.to(store_dtype).to(q.dtype)
+    vc = v.to(store_dtype).to(q.dtype)
+    return layers.attention_full(
+        q, torch.cat([kh, kc], dim=1), torch.cat([vh, vc], dim=1),
+        positions, torch.cat([kp, positions], dim=1),
+        causal=True, window=window, softcap=cfg.attn_softcap)
+
+
+def _paged_prefill_attend(cfg, q, k, v, cache, positions, rows: PrefillRows):
+    """Paged chunked prefill of a global block: history rows gathered
+    through the page table, the chunk's rows from ``begin`` on scattered
+    into their pages (in place) — the dense concat's shapes and values,
+    so paged prefill equals dense prefill."""
+    pk, pv = cache["pk"], cache["pv"]
+    P, ps, KV, hd = pk.shape
+    hist, hpos, b_t, s_t, dst = rows.get_paged(ps)
+    pkf, pvf = pk.view(P * ps, KV, hd), pv.view(P * ps, KV, hd)
+    kh = pkf[hist].to(q.dtype)
+    vh = pvf[hist].to(q.dtype)
+    pkf[dst] = k[b_t, s_t].to(pk.dtype)
+    pvf[dst] = v[b_t, s_t].to(pv.dtype)
+    B = positions.shape[0]
+    kp = hpos.to(positions.dtype)[None].expand(B, len(hpos))
+    return _attend_chunk(cfg, 0, q, k, v, kh, vh, kp, positions, pk.dtype)
+
 
 def _prefill_attend(cfg, btype, q, k, v, cache, positions, rows: PrefillRows):
     """Chunked batched prefill of one block: scatter the chunk's valid
     K/V rows into the slot cache (in place) and attend causally over the
     already written history plus the chunk."""
+    if "pk" in cache:
+        return _paged_prefill_attend(cfg, q, k, v, cache, positions, rows)
     ring = btype == BLOCK_LOCAL_ATTN
     window = cfg.window_size if ring else 0
     ck, cv = cache["k"], cache["v"]
@@ -240,22 +390,17 @@ def _prefill_attend(cfg, btype, q, k, v, cache, positions, rows: PrefillRows):
     vh = cv[:, hidx].to(q.dtype)
     ck[b_t, dst] = k[b_t, s_t].to(ck.dtype)
     cv[b_t, dst] = v[b_t, s_t].to(cv.dtype)
-    # the chunk's own k/v round-trip through the cache dtype, so scores
-    # match what the per-token path reads back
-    kc = k.to(ck.dtype).to(q.dtype)
-    vc = v.to(cv.dtype).to(q.dtype)
     kp = hpos.to(positions.dtype)[None].expand(B, len(hpos))
-    return layers.attention_full(
-        q, torch.cat([kh, kc], dim=1), torch.cat([vh, vc], dim=1),
-        positions, torch.cat([kp, positions], dim=1),
-        causal=True, window=window, softcap=cfg.attn_softcap)
+    return _attend_chunk(cfg, window, q, k, v, kh, vh, kp, positions,
+                         ck.dtype)
 
 
 def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
-                 pos=None, attn_impl="full", active=None):
+                 pos=None, attn_impl="full", active=None, page_table=None):
     """One attention block.  ``mode``: ``train`` (full sequence, no
-    cache), ``decode`` (one token, ``pos`` [B] write index) or
-    ``prefill_slots`` (``pos`` = the chunk's ``PrefillRows``)."""
+    cache), ``decode`` (one token, ``pos`` [B] write index; paged pools
+    go through ``page_table`` [B, NP] on the device) or ``prefill_slots``
+    (``pos`` = the chunk's ``PrefillRows``)."""
     window = cfg.window_size if btype == BLOCK_LOCAL_ATTN else 0
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     B, S, D = h.shape
@@ -265,7 +410,10 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     v = (h @ params["attn"]["wv"].to(h.dtype)).reshape(B, S, KV, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    if mode == "decode":
+    if mode == "decode" and "pk" in cache:
+        o = _paged_decode_attend(cfg, q, k, v, cache, pos, page_table,
+                                 active, attn_impl)
+    elif mode == "decode":
         o = _decode_attend(cfg, btype, q, k, v, cache, pos, active,
                            attn_impl)
     elif mode == "prefill_slots":
@@ -274,9 +422,7 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
         o = layers.attention_full(q, k, v, positions, positions, causal=True,
                                   window=window, softcap=cfg.attn_softcap)
     else:
-        raise NotImplementedError(
-            f"mode {mode!r} not ported yet (ROADMAP queue A: paged KV, "
-            f"speculative verify)")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + o.reshape(B, S, H * hd) @ params["attn"]["wo"].to(x.dtype)
     h = layers.rms_norm(params["ln2"], x, cfg.norm_eps)
     if cfg.d_ff:
@@ -304,7 +450,8 @@ def _resolve_overlay(bp, g, ov):
 
 
 def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
-                 pos=None, attn_impl="full", active=None, overlay=None):
+                 pos=None, attn_impl="full", active=None, overlay=None,
+                 page_table=None):
     """Apply the stacked blocks in order: a Python loop over the ``[G]``
     rows of each stage (JAX scans them).  ``overlay``: optional
     {"s{si}/pos{j}": ov} of BlockLLM active and probe rows (see
@@ -322,10 +469,10 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                     bp = _resolve_overlay(bp, g, ov)
                 cj = None
                 if caches is not None:
-                    c = caches[si][f"pos{j}"]
-                    cj = {"k": c["k"][g], "v": c["v"][g]}
+                    cj = {n: a[g] for n, a in caches[si][f"pos{j}"].items()}
                 kw = dict(positions=positions, mode=mode, cache=cj, pos=pos,
-                          attn_impl=attn_impl, active=active)
+                          attn_impl=attn_impl, active=active,
+                          page_table=page_table)
                 if remat:
                     x = torch.utils.checkpoint.checkpoint(
                         lambda h, bp=bp, btype=btype, kw=kw: _block_apply(
@@ -465,7 +612,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="full",
 
 
 def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,
-                       chunk_start=0, attn_impl="full"):
+                       chunk_start=0, attn_impl="full", page_table=None,
+                       begin=None):
     """Chunked batched prefill into a slot-batched decode cache.
 
     ``tokens`` [B, K] (device): positions ``[chunk_start, chunk_start +
@@ -474,16 +622,23 @@ def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,
     primed — their cache rows are not touched).  Writes the chunk's K/V
     rows into ``cache`` in place and returns ``(logits [B, vocab] at
     each slot's last valid position of this chunk, cache)``.
+
+    Paged caches (``init_paged_cache``) take the host ``page_table``
+    [B, NP] and ``begin`` [B], each slot's first self-computed position
+    (rows below it live in shared prefix pages and are not written).
     """
     B, K = tokens.shape
     dev = tokens.device
     lengths = np.asarray(lengths, np.int64)
     positions = (chunk_start + torch.arange(K, dtype=torch.int32,
                                             device=dev))[None].expand(B, K)
+    rows = PrefillRows(lengths, chunk_start, K, dev,
+                       table=None if page_table is None
+                       else _host(page_table),
+                       begin=None if begin is None else _host(begin))
     x = _embed(params, cfg, tokens)
     x = _stack_apply(cfg, params["stages"], x, positions=positions,
-                     mode="prefill_slots", caches=cache["stages"],
-                     pos=PrefillRows(lengths, chunk_start, K, dev),
+                     mode="prefill_slots", caches=cache["stages"], pos=rows,
                      attn_impl=attn_impl)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     # unembed only each slot's last valid row of this chunk, through the
@@ -494,20 +649,72 @@ def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,
     return _unembed(params, cfg, xg[:, None])[:, 0], cache
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def verify_into_slots(params, cfg: ModelConfig, cache, tokens, starts,
+                      active, *, page_table=None, attn_impl="full"):
+    """Score K candidate positions per slot: the verifier half of
+    self-speculative serving.
+
+    ``tokens`` [B, K] (device): position ``starts[b] + j`` holds
+    ``tokens[b, j]``, each slot's last emitted token followed by the
+    K - 1 draft tokens; ``starts`` [B] (host) is each slot's next write
+    index; ``active`` [B] (host bool) selects the slots that write.
+    Paged caches take the host ``page_table`` [B, NP] (the pages of rows
+    ``starts .. starts + K`` already writable).  Writes the chunk's K/V
+    rows under the current params, in place, over the draft rows, and
+    returns ``(logits [B, K, vocab], cache)`` where ``logits[b, j]``
+    scores the token after ``tokens[b, j]``.
+
+    The K positions run through the decode step itself (``attn_impl``
+    attention; inactive slots stay at ``starts`` and write nothing), so
+    logits and rows are bitwise those of plain decoding, which the
+    server's stream guarantee needs.  The JAX package scores the chunk
+    in one pass, which there equals per-token decoding bit for bit; in
+    PyTorch a [B, K, D] pass rounds differently from [B, 1, D] steps,
+    so the one-pass verify is not ported (ROADMAP C) and a round costs
+    K decode passes."""
+    dev = tokens.device
+    st = _host(starts).astype(np.int64)
+    act = _host(active).astype(bool)
+    act_t = torch.as_tensor(act, device=dev)
+    tbl = (None if page_table is None else torch.as_tensor(
+        _host(page_table), dtype=torch.int32, device=dev))
+    out = []
+    for j in range(tokens.shape[1]):
+        pos = np.where(act, st + j, st).astype(np.int32)
+        lg, _ = decode_step(params, cfg, cache, tokens[:, j:j + 1], pos,
+                            attn_impl=attn_impl, active=act_t,
+                            page_table=tbl)
+        out.append(lg)
+    return torch.stack(out, dim=1), cache
+
+
 def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
-                attn_impl="full", active=None):
+                attn_impl="full", active=None, page_table=None):
     """One decode step.  token [B, 1]; pos [B] int32 per-slot write
     index; ``active`` [B] bool (None = all slots) masks the in-place
-    cache writes.  Returns ``(logits [B, vocab], cache)``."""
+    cache writes.  Paged caches take ``page_table`` [B, NP] int32, copied
+    to the device here once for every layer.  Returns ``(logits [B,
+    vocab], cache)``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
     B = token.shape[0]
+    dev = token.device
     pos_b = torch.as_tensor(pos, dtype=torch.int32,
-                            device=token.device).reshape(-1).expand(B)
+                            device=dev).reshape(-1).expand(B)
+    if active is not None:
+        active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+    if page_table is not None:
+        page_table = torch.as_tensor(page_table, dtype=torch.int32,
+                                     device=dev)
     x = _embed(params, cfg, token)
     x = _stack_apply(cfg, params["stages"], x, positions=pos_b[:, None],
                      mode="decode", caches=cache["stages"], pos=pos_b,
-                     attn_impl=attn_impl, active=active)
+                     attn_impl=attn_impl, active=active,
+                     page_table=page_table)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], cache

@@ -26,12 +26,34 @@ slots with the resident adapter's queue first), per-adapter turn budgets
 scaled by queue depth and truncated by SLO deadlines, and an aging bound
 against starvation (``adapter_aware=False`` restores round-robin).
 
-Not ported yet (ROADMAP queue A): the paged KV layout, speculative
-decoding and the device AdapterCache — configs asking for them raise
-``NotImplementedError``.  There is no jit: the ``sched/compiles``
-counter counts the lazy kernel builds (1 on the first kernel use in the
-process, 0 after), and the one host sync per step is the argmax of the
-logits.
+**PagedKV** (``kv.layout="paged"``, ``runtime/paged_kv.py``): the KV
+cache is a pool of fixed-size pages addressed through per-slot page
+tables, admission is continuous (every step retires finished requests,
+freeing their pages, and admits queued ones against a worst-case page
+reservation, FIFO per group), and requests of one tenant with a common
+prompt prefix map the same pages copy-on-write.  Before each dispatch
+the allocator makes the rows it writes writable (fresh pages, COW
+splits, copied on the device first) and the page table goes to the
+device once.  Streams equal the dense layout's.
+
+**Self-speculative decoding** (``spec.draft > 0``): the resident base
+model drafts N tokens per round through the plain decode path (the
+tenant's rows flipped out and back by ``adapters.flip_delta``), the
+tenant scores all N + 1 positions through ``model.verify_into_slots``
+(each position through the decode path, so the logits are bitwise plain
+decoding's), and the longest greedy-agreeing prefix is accepted
+(``spec_accept``): streams equal plain greedy decoding.  A round costs
+2N + 1 decode passes (``stats()["spec"]["passes"]``) for at most N + 1
+tokens per slot, so it is slower than plain decoding until the verify
+runs in one pass (ROADMAP C).  Paged slots roll rejected pages back
+(``PageAllocator.rollback_to``).  The draft length adapts per group on
+an acceptance EMA.
+
+Not ported yet (ROADMAP queue A): the device AdapterCache —
+``sched.cache_bytes > 0`` raises ``NotImplementedError``.  There is no
+jit: the ``sched/compiles`` counter counts the lazy kernel builds (1 on
+the first kernel use in the process, 0 after), and the one host sync
+per decode dispatch is the argmax of the logits.
 """
 from __future__ import annotations
 
@@ -48,6 +70,7 @@ from repro_torch.checkpoint.checkpointer import tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
 from repro_torch.obs import MetricsRegistry
+from repro_torch.runtime import paged_kv
 from repro_torch.runtime.serve_config import ServeConfig
 
 STATS_VERSION = 2
@@ -111,14 +134,6 @@ class DecodeServer:
         ``device=None`` means the CUDA device (raises without one);
         pass ``device="cpu"`` to serve on the CPU."""
         config = config if config is not None else ServeConfig()
-        if config.kv.layout != "dense":
-            raise NotImplementedError(
-                "kv layout 'paged' is not ported yet (ROADMAP queue A: "
-                "paged KV)")
-        if config.spec.draft > 0:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue A: "
-                "spec decode)")
         if config.sched.cache_bytes > 0:
             raise NotImplementedError(
                 "the device AdapterCache is not ported yet (ROADMAP queue "
@@ -150,8 +165,44 @@ class DecodeServer:
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * self.slots
         self.pos = np.zeros(self.slots, np.int32)   # next write index
-        self.cache_state = model_lib.init_cache(cfg, self.slots, self.max_seq,
-                                                device=self.device)
+        # KV layout: dense [slots, max_seq] rows, or a page pool + per-slot
+        # page tables + the host-side allocator
+        self.alloc: Optional[paged_kv.PageAllocator] = None
+        self._plans: Dict[int, paged_kv.AdmitPlan] = {}
+        if config.kv.layout == "paged":
+            if not model_lib.supports_paged_kv(cfg):
+                raise ValueError(
+                    "kv layout 'paged' needs an all-attention, token-only "
+                    "architecture")
+            ps = int(config.kv.page_size)
+            # 0 = auto: every slot can hold max_seq tokens, + the null page
+            npages = (int(config.kv.pages)
+                      or self.slots * (self.max_seq // ps) + 1)
+            self.alloc = paged_kv.PageAllocator(
+                npages, ps, self.slots, self.max_seq,
+                share_prefix=(config.kv.prefix_share
+                              and model_lib.supports_prefix_share(cfg)),
+                metrics=self.metrics, tracer=tracer)
+            self.cache_state = model_lib.init_paged_cache(
+                cfg, self.slots, npages, ps, self.max_seq,
+                device=self.device)
+        else:
+            self.cache_state = model_lib.init_cache(
+                cfg, self.slots, self.max_seq, device=self.device)
+        # self-speculative decoding: the base drafts, the tenant verifies
+        self.speculate = max(0, int(config.spec.draft))
+        self.spec_adaptive = bool(config.spec.adaptive)
+        if self.speculate and not model_lib.supports_spec_decode(cfg):
+            raise ValueError(
+                "speculate > 0 needs an all-global-attention, token-only "
+                "architecture: rejected draft rows roll back by position "
+                "masking, which ring-buffer local-attention rows do not "
+                "support (see model.supports_spec_decode)")
+        self._spec_len: Dict[Optional[str], int] = {}
+        self._spec_ema: Dict[Optional[str], float] = {}
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
         self.tokens = np.zeros((self.slots, 1), np.int32)
         self.steps = 0
         # adapter swap state
@@ -174,6 +225,12 @@ class DecodeServer:
                   "sched/swap_bytes", "sched/compiles", "sched/submitted",
                   "sched/finished"):
             m.counter(c)
+        if self.speculate:
+            for c in ("spec/rounds", "spec/passes", "spec/drafted",
+                      "spec/accepted", "spec/rollbacks", "spec/flips"):
+                m.counter(c)
+            m.gauge("spec/draft_len")
+            m.gauge("spec/acceptance_rate")
         for g in ("decode/ms_per_step", "sched/queue_depth",
                   "sched/swap_rate"):
             m.gauge(g)
@@ -184,11 +241,18 @@ class DecodeServer:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _decode(self, tokens, pos, mask):
+    def _table(self) -> Optional[torch.Tensor]:
+        """The page table on the device (paged layout), else None."""
+        if self.alloc is None:
+            return None
+        return self._dev(self.alloc.table())
+
+    def _decode(self, tokens, pos, mask, table=None):
+        """One decode dispatch; ``table``: the device page table (paged)."""
         return model_lib.decode_step(
             self.params, self.cfg, self.cache_state, self._dev(tokens),
             self._dev(pos), attn_impl=self.attn_impl,
-            active=self._dev(mask))[0]
+            active=self._dev(mask), page_table=table)[0]
 
     def submit(self, req: Request):
         if req.adapter_id is not BASE:
@@ -201,6 +265,16 @@ class DecodeServer:
             if not self.registry.exists(req.adapter_id):
                 raise ValueError(f"request {req.rid}: adapter "
                                  f"{req.adapter_id!r} not in registry")
+        if self.alloc is not None:
+            # a request whose worst case exceeds the whole pool could
+            # never be admitted and would wedge the queue behind it
+            total = min(len(req.prompt) + req.max_new_tokens, self.max_seq)
+            if not self.alloc.fits_ever(total):
+                raise ValueError(
+                    f"request {req.rid}: worst case {total} tokens needs "
+                    f"more KV pages than the pool holds "
+                    f"({self.alloc.usable_pages} x "
+                    f"{self.alloc.page_size} rows)")
         req.submit_step = self.steps
         req.submit_ns = time.monotonic_ns()
         self.queue.append(req)
@@ -381,14 +455,41 @@ class DecodeServer:
             req.on_token(tok)
 
     def _retire(self, req: Request, slot: int):
+        """Free a finished request's slot (and, paged, its KV pages: the
+        same step can admit against them)."""
         req.done = True
         req.finish_step = self.steps
         self.active[slot] = None
+        if self.alloc is not None:
+            self.alloc.release_slot(slot)
+            self._plans.pop(slot, None)
         self._finish(req)
+
+    def _apply_copies(self, copies):
+        """The device half of copy-on-write splits: copy each ``(src,
+        dst)`` page in every pool, in place, on the current stream (so
+        before the dispatch that writes ``dst``)."""
+        if copies:
+            src, dst = zip(*copies)
+            model_lib.copy_cache_pages(self.cache_state, src, dst)
+
+    def _ensure_rows(self, slots, begin, end):
+        """Make rows ``[begin[s], end[s])`` of each slot writable (fresh
+        pages, COW splits applied on the device).  Reservations guarantee
+        the allocations succeed (see paged_kv.py)."""
+        copies = []
+        for s in slots:
+            copies.extend(self.alloc.ensure_range(s, int(begin[s]),
+                                                  int(end[s])))
+        self._apply_copies(copies)
 
     def _admit(self, group: Optional[str] = BASE):
         """Fill free slots with queued requests of ``group`` (its delta
-        is already applied) and prime their prompts together."""
+        is already applied) and prime their prompts together.  Paged:
+        admission is also gated on page capacity (each request reserves
+        its worst case), FIFO per group — a request that does not fit
+        blocks later ones, so big requests are not starved by small
+        ones."""
         admitted = []
         for slot in range(self.slots):
             if self.active[slot] is not None:
@@ -397,7 +498,16 @@ class DecodeServer:
                        if r.adapter_id == group), None)
             if qi is None:
                 break
-            req = self.queue.pop(qi)
+            req = self.queue[qi]
+            if self.alloc is not None:
+                total = min(len(req.prompt) + req.max_new_tokens,
+                            self.max_seq)
+                plan = self.alloc.plan(group, req.prompt, total)
+                if not self.alloc.can_admit(plan.need_pages):
+                    break           # pages free as active requests retire
+                self.alloc.admit(slot, plan)
+                self._plans[slot] = plan
+            self.queue.pop(qi)
             self.active[slot] = req
             admitted.append((slot, req))
         if not admitted:
@@ -418,6 +528,11 @@ class DecodeServer:
             tr.add_span("admit", admit_t0, time.monotonic_ns(),
                         lane="sched", group=str(group), count=len(admitted))
         for (slot, req), first in zip(admitted, firsts):
+            if self.alloc is not None:
+                # pin the freshly primed prompt pages before the first
+                # decode write: the pin keeps them immutable (that write
+                # splits them), and later requests map them
+                self.alloc.register(slot, group, req.prompt)
             req.first_token_step = self.steps
             self._emit(req, slot, first)
             self.pos[slot] = len(req.prompt)
@@ -427,26 +542,45 @@ class DecodeServer:
             if len(req.out) >= req.max_new_tokens:
                 self._retire(req, slot)
 
+    def _prime_begins(self, admitted) -> np.ndarray:
+        """Paged priming: make every admitted slot's own prompt rows
+        writable and return each slot's first self-computed position (its
+        shared-prefix match length; 0 where nothing matched)."""
+        begins = np.zeros(self.slots, np.int32)
+        ends = np.zeros(self.slots, np.int32)
+        for slot, req in admitted:
+            begins[slot] = self._plans[slot].matched_len
+            ends[slot] = len(req.prompt)
+        self._ensure_rows([s for s, _ in admitted], begins, ends)
+        return begins
+
     def _prime_tokenwise(self, admitted) -> List[int]:
         """Per-token priming: teacher-force each prompt through the
-        decode step, one token at a time, one request at a time."""
+        decode step, one token at a time, one request at a time.  Paged
+        slots start at their shared-prefix match."""
         tr = self.tracer
+        paged = self.alloc is not None
+        begins = (self._prime_begins(admitted) if paged
+                  else np.zeros(self.slots, np.int32))
+        table = self._table()
         firsts = []
         for slot, req in admitted:
             logits = None
             toks = self.tokens.copy()
             t0 = time.monotonic_ns() if tr is not None else 0
-            for t in range(len(req.prompt)):
+            b0 = int(begins[slot])
+            for t in range(b0, len(req.prompt)):
                 toks[slot, 0] = int(req.prompt[t])
                 pos = self.pos.copy()
                 pos[slot] = t
-                logits = self._decode(toks, pos, self._mask(slot))
+                logits = self._decode(toks, pos, self._mask(slot), table)
                 self.prefill_dispatches += 1
-            self.metrics.counter("prefill/dispatches").inc(len(req.prompt))
+            self.metrics.counter("prefill/dispatches").inc(
+                len(req.prompt) - b0)
             if tr is not None:
                 tr.add_span("prefill", t0, time.monotonic_ns(),
                             lane="sched", kind="tokenwise", rid=req.rid,
-                            tokens=len(req.prompt))
+                            tokens=len(req.prompt) - b0)
             # the final prime logits predict the first new token
             firsts.append(int(logits[slot].argmax()))
         return firsts
@@ -455,17 +589,32 @@ class DecodeServer:
         """Chunked batched prefill: every admitted prompt runs through
         ``model.prefill_into_slots`` together, ``prefill_chunk`` positions
         per dispatch (tail chunks bucketed to powers of two).  The chunk
-        covering each prompt's last token yields its first new token."""
+        covering each prompt's last token yields its first new token.
+
+        Paged with prefix sharing uses a fixed chunk grid (full chunks at
+        aligned starts): a K/V row's bits then depend only on the token
+        prefix, never on this batch's chunk layout, so rows one request
+        wrote can be mapped by another.  Chunks below every slot's match
+        are skipped."""
         tr = self.tracer
+        paged = self.alloc is not None
+        begins = (self._prime_begins(admitted) if paged
+                  else np.zeros(self.slots, np.int32))
+        table = self.alloc.table() if paged else None
+        fixed_grid = paged and self.alloc.share_prefix
         lengths = np.zeros(self.slots, np.int32)
         for slot, req in admitted:
             lengths[slot] = len(req.prompt)
         longest = int(lengths.max())
         firsts: Dict[int, int] = {}
         start = 0
+        if fixed_grid:
+            start = (int(min(begins[s] for s, _ in admitted))
+                     // self.prefill_chunk) * self.prefill_chunk
         while start < longest:
-            k = _chunk_bucket(min(self.prefill_chunk, longest - start),
-                              self.prefill_chunk)
+            k = (self.prefill_chunk if fixed_grid else
+                 _chunk_bucket(min(self.prefill_chunk, longest - start),
+                               self.prefill_chunk))
             toks = np.zeros((self.slots, k), np.int32)
             for slot, req in admitted:
                 hi = min(len(req.prompt), start + k)
@@ -475,7 +624,8 @@ class DecodeServer:
             t0 = time.monotonic_ns() if tr is not None else 0
             logits, _ = model_lib.prefill_into_slots(
                 self.params, self.cfg, self.cache_state, self._dev(toks),
-                lengths, chunk_start=start, attn_impl=self.attn_impl)
+                lengths, chunk_start=start, attn_impl=self.attn_impl,
+                page_table=table, begin=begins if paged else None)
             if tr is not None:
                 tr.add_span("prefill", t0, time.monotonic_ns(),
                             lane="sched", kind="chunk", start=start,
@@ -504,8 +654,9 @@ class DecodeServer:
                     adapter=str(req.adapter_id), tokens=len(req.out))
 
     def step(self) -> int:
-        """One decode micro-step for the scheduled adapter group;
-        returns #finished requests."""
+        """One decode micro-step (a speculative round when ``spec.draft >
+        0``) for the scheduled adapter group; returns #finished
+        requests."""
         builds0 = ops.builds()
         group = self._schedule()
         self._ensure_adapter(group)
@@ -515,30 +666,24 @@ class DecodeServer:
         if not mask.any():
             self._turn_left = 0  # group drained during admission: rotate
             return 0
+        if self.speculate:
+            n = self._spec_round_len(group, mask)
+            if n >= 1:
+                return self._spec_step(group, mask, n, builds0)
+        table = None
+        if self.alloc is not None:
+            # this step's write rows made writable before the dispatch: a
+            # fresh page at a page boundary, a COW split at the first
+            # write into a shared page
+            live = np.flatnonzero(mask)
+            self._ensure_rows(live, self.pos, self.pos + 1)
+            table = self._table()
         t0_ns = time.monotonic_ns()
-        logits = self._decode(self.tokens, self.pos, mask)
+        logits = self._decode(self.tokens, self.pos, mask, table)
         nxt = logits.argmax(-1).cpu()    # the host sync point
         t1_ns = time.monotonic_ns()
-        # a lazy kernel build during this step (the port's analogue of a
-        # jit compile): keep it out of the step-time samples
-        compiled = ops.builds() > builds0
-        dt = (t1_ns - t0_ns) / 1e6
-        if compiled:
-            self.metrics.counter("sched/compiles").inc()
-        if self.tracer is not None:
-            self.tracer.add_span("decode_step", t0_ns, t1_ns,
-                                 lane=_lane(group), step=self.steps,
-                                 batch=int(mask.sum()), compiled=compiled)
-            if compiled:
-                self.tracer.instant("jit_compile", lane="sched",
-                                    fn="decode", step=self.steps)
-        if not compiled:
-            self.metrics.histogram("decode/step_ms").observe(dt)
-        if self._ms_auto and not compiled:
-            # EMA over build-free samples only; the first one seeds it
-            self._ms_samples += 1
-            self.ms_per_step = (dt if self._ms_samples == 1
-                                else 0.2 * dt + 0.8 * self.ms_per_step)
+        self._record_step(group, t0_ns, t1_ns, int(mask.sum()), builds0,
+                          fn="decode")
         finished = 0
         self.steps += 1
         self.metrics.counter("decode/steps").inc()
@@ -554,6 +699,173 @@ class DecodeServer:
                     or self.pos[slot] >= self.max_seq - 1):
                 self._retire(req, slot)
                 finished += 1
+        if not self._group_has_work(group):
+            self._turn_left = 0
+        return finished
+
+    def _record_step(self, group, t0_ns, t1_ns, batch, builds0, fn):
+        """Step time and trace span of one scheduler step.  A lazy kernel
+        build during the step (the port's analogue of a jit compile) is
+        kept out of the step-time samples and the ms/step EMA."""
+        compiled = ops.builds() > builds0
+        dt = (t1_ns - t0_ns) / 1e6
+        if compiled:
+            self.metrics.counter("sched/compiles").inc()
+        if self.tracer is not None:
+            if fn == "decode":
+                self.tracer.add_span("decode_step", t0_ns, t1_ns,
+                                     lane=_lane(group), step=self.steps,
+                                     batch=batch, compiled=compiled)
+            if compiled:
+                self.tracer.instant("jit_compile", lane="sched",
+                                    fn=fn, step=self.steps)
+        if not compiled:
+            self.metrics.histogram("decode/step_ms").observe(dt)
+        if self._ms_auto and not compiled:
+            # EMA over build-free samples only; the first one seeds it
+            self._ms_samples += 1
+            self.ms_per_step = (dt if self._ms_samples == 1
+                                else 0.2 * dt + 0.8 * self.ms_per_step)
+
+    # ------------------------------------------------------------------ #
+    # self-speculative decoding
+    # ------------------------------------------------------------------ #
+
+    def _spec_round_len(self, group, mask) -> int:
+        """Draft length of this round: the group's adaptive length,
+        clamped so no active slot writes past its budget (the verify
+        chunk writes rows up to ``pos + n``; paged slots reserved exactly
+        ``prompt + max_new_tokens`` rows) or its max_seq headroom."""
+        n = self._spec_len.get(group, self.speculate)
+        for slot in np.flatnonzero(mask):
+            req = self.active[slot]
+            n = min(n, req.max_new_tokens - len(req.out),
+                    self.max_seq - 1 - int(self.pos[slot]))
+        return max(0, n)
+
+    def _flip_to_base(self):
+        """Drop to the base model for drafting: swap the displaced base
+        rows back in (a device scatter-swap; ``_applied`` unchanged).
+        Returns the adapter's rows for ``_flip_back``; None when the base
+        group is live (drafter == verifier)."""
+        if self._displaced is None:
+            return None
+        disp, self._displaced = self._displaced, None
+        self.params, adapter_rows = delta_lib.flip_delta(
+            self.params, disp, mode=self.swap_mode)
+        return adapter_rows
+
+    def _flip_back(self, adapter_rows):
+        if adapter_rows is None:
+            return
+        self.params, self._displaced = delta_lib.flip_delta(
+            self.params, adapter_rows, mode=self.swap_mode)
+        self.metrics.counter("spec/flips").inc(2)
+
+    def _spec_step(self, group, mask, n: int, builds0) -> int:
+        """One speculative round: the base model drafts ``n`` tokens per
+        active slot through the plain decode path, the tenant scores all
+        n + 1 positions (overwriting the draft K/V rows with its own),
+        and the longest greedy-agreeing prefix is accepted.  Emits 1 to
+        n + 1 tokens per slot; returns #finished."""
+        tr = self.tracer
+        m = self.metrics
+        paged = self.alloc is not None
+        pos0 = self.pos.copy()
+        slots_idx = [int(s) for s in np.flatnonzero(mask)]
+        table = None
+        if paged:
+            # every row of the round (n draft writes + the verify chunk's
+            # n + 1 rows) made writable up front; the table then stays
+            # the same for the whole round
+            self._ensure_rows(slots_idx, pos0, pos0 + n + 1)
+            table = self._table()
+        t0_ns = time.monotonic_ns()
+        # ---- draft: n plain decode steps under the base model --------- #
+        saved = self._flip_to_base()
+        toks = self.tokens.copy()
+        dpos = pos0.copy()
+        drafts = np.zeros((n, self.slots), np.int64)
+        for i in range(n):
+            d0 = time.monotonic_ns()
+            logits = self._decode(toks, dpos, mask, table)
+            drafts[i] = logits.argmax(-1).cpu().numpy()
+            if tr is not None:
+                tr.add_span("decode_step", d0, time.monotonic_ns(),
+                            lane=_lane(group), step=self.steps,
+                            batch=len(slots_idx), draft=True)
+            for s in slots_idx:
+                toks[s, 0] = drafts[i, s]
+            dpos[mask] += 1
+        self._flip_back(saved)
+        t1_ns = time.monotonic_ns()
+        if tr is not None:
+            tr.add_span("spec_draft", t0_ns, t1_ns, lane=_lane(group),
+                        step=self.steps, n=n, batch=len(slots_idx))
+        # ---- verify: n + 1 decode passes under the tenant ------------ #
+        vt = np.zeros((self.slots, n + 1), np.int32)
+        for s in slots_idx:
+            vt[s, 0] = self.tokens[s, 0]   # last emitted token
+            vt[s, 1:] = drafts[:, s]
+        vlogits, _ = model_lib.verify_into_slots(
+            self.params, self.cfg, self.cache_state, self._dev(vt), pos0,
+            mask, page_table=self.alloc.table() if paged else None,
+            attn_impl=self.attn_impl)
+        greedy = vlogits.argmax(-1).cpu().numpy()     # [slots, n + 1]
+        t2_ns = time.monotonic_ns()
+        if tr is not None:
+            tr.add_span("spec_verify", t1_ns, t2_ns, lane=_lane(group),
+                        step=self.steps, n=n + 1, batch=len(slots_idx))
+        self._record_step(group, t0_ns, t2_ns, len(slots_idx), builds0,
+                          fn="spec")
+        # ---- accept / emit / roll back -------------------------------- #
+        finished = emitted_total = accepted_total = rollbacks = 0
+        self.steps += 1
+        m.counter("decode/steps").inc()
+        self._turn_left -= 1
+        self._last_served[group] = self.steps
+        for s in slots_idx:
+            req = self.active[s]
+            a, emit = spec_accept(drafts[:, s], greedy[s])
+            accepted_total += a
+            if a < n:
+                rollbacks += 1
+            for t in emit:
+                self._emit(req, s, t)
+                self.pos[s] += 1
+                emitted_total += 1
+                if (len(req.out) >= req.max_new_tokens
+                        or self.pos[s] >= self.max_seq - 1):
+                    break
+            if (len(req.out) >= req.max_new_tokens
+                    or self.pos[s] >= self.max_seq - 1):
+                self._retire(req, s)
+                finished += 1
+            elif paged:
+                # return the pages the rejected suffix no longer needs
+                self.alloc.rollback_to(s, int(self.pos[s]))
+        self.spec_drafted += n * len(slots_idx)
+        self.spec_accepted += accepted_total
+        self.spec_emitted += emitted_total
+        m.counter("spec/rounds").inc()
+        m.counter("spec/passes").inc(2 * n + 1)
+        m.counter("spec/drafted").inc(n * len(slots_idx))
+        m.counter("spec/accepted").inc(accepted_total)
+        m.counter("spec/rollbacks").inc(rollbacks)
+        m.counter("decode/tokens").inc(emitted_total)
+        # ---- adaptive draft length ------------------------------------ #
+        rate = accepted_total / (n * len(slots_idx))
+        prev = self._spec_ema.get(group)
+        ema = rate if prev is None else 0.5 * rate + 0.5 * prev
+        self._spec_ema[group] = ema
+        if self.spec_adaptive:
+            cur = self._spec_len.get(group, self.speculate)
+            if ema < 0.4 and cur > 1:
+                cur = max(1, cur // 2)
+            elif ema > 0.8 and cur < self.speculate:
+                cur += 1
+            self._spec_len[group] = cur
+            m.gauge("spec/draft_len").set(cur)
         if not self._group_has_work(group):
             self._turn_left = 0
         return finished
@@ -591,17 +903,33 @@ class DecodeServer:
             f"max_steps={max_steps} (rids {undone[:8]}...)")
 
     def stats(self) -> Dict[str, object]:
-        """Nested ``prefill`` / ``decode`` / ``sched`` sections from the
-        metrics registry, stamped ``stats_version`` 2 (the JAX schema)."""
+        """Nested ``prefill`` / ``decode`` / ``sched`` (and ``kv`` /
+        ``spec`` when enabled) sections from the metrics registry, stamped
+        ``stats_version`` 2 (the JAX schema)."""
         swap_rate = self.swaps / self.steps if self.steps else 0.0
         self.metrics.gauge("decode/ms_per_step").set(self.ms_per_step)
         self.metrics.gauge("sched/swap_rate").set(swap_rate)
+        if self.speculate:
+            self.metrics.gauge("spec/acceptance_rate").set(
+                self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
         nested = self.metrics.nested()
         sched = dict(nested.get("sched", {}))
         sched["applied"] = self._applied
-        return {
+        out: Dict[str, object] = {
             "stats_version": STATS_VERSION,
             "decode": dict(nested.get("decode", {})),
             "prefill": dict(nested.get("prefill", {})),
             "sched": sched,
         }
+        if self.speculate:
+            spec = dict(nested.get("spec", {}))
+            spec["tokens_per_step"] = (self.spec_emitted / spec["rounds"]
+                                       if spec.get("rounds") else 0.0)
+            out["spec"] = spec
+        if self.alloc is not None:
+            kv = dict(nested.get("kv", {}))
+            kv["page_size"] = self.alloc.page_size
+            kv["num_pages"] = self.alloc.num_pages
+            out["kv"] = kv
+        return out

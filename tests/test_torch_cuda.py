@@ -225,3 +225,117 @@ def test_cuda_masked_adam_tree_through_ops(cuda_device):
 def _flatten_leaves(tree):
     from repro_torch.checkpoint.checkpointer import _flatten_with_names
     return _flatten_with_names(list(tree))[1]
+
+
+def _paged_state(dev, G, hd, qdt, pdt, seed=0, B=8, KV=8, ps=16, NP=64):
+    """A valid paged decode state: shuffled pages, entries past pos
+    unmapped, slots 2/6/7 sharing their first two pages (none of them
+    writes there), slots 3 and 7 inactive; pos on a page's first and last
+    rows."""
+    rng = np.random.default_rng(seed)
+    P = B * NP + 1
+    pos = [16, 31, 200, 511, 900, 1023, 47, 64]
+    tbl = (1 + rng.permutation(P - 1))[:B * NP].reshape(B, NP)
+    for b in (6, 7):
+        tbl[b, :2] = tbl[2, :2]
+    for b, p in enumerate(pos):
+        tbl[b, p // ps + 1:] = 0
+    g = torch.Generator(dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    return (rn(B, 1, KV * G, hd).to(qdt), rn(B, KV, hd), rn(B, KV, hd),
+            rn(P, ps, KV, hd).to(pdt), rn(P, ps, KV, hd).to(pdt),
+            torch.tensor(pos, dtype=torch.int32, device=dev),
+            torch.tensor(tbl, dtype=torch.int32, device=dev),
+            torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.bool,
+                         device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hd,qdt,pdt,window,softcap", [
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0),
+    (1, 128, torch.float32, torch.bfloat16, 0, 0.0),
+    (8, 64, torch.float32, torch.bfloat16, 0, 0.0),
+    (2, 64, torch.float32, torch.bfloat16, 100, 0.0),
+    (2, 128, torch.float32, torch.bfloat16, 0, 30.0),
+    (2, 128, torch.float32, torch.float32, 0, 0.0)])
+def test_cuda_paged_decode_attention_matches_plain_and_dense(
+        cuda_device, G, hd, qdt, pdt, window, softcap):
+    """The fused paged kernel: o within the dense kernel's tolerance of
+    its plain version, pools bitwise outside the null page, and bitwise
+    the dense kernel on the gathered view (block_k 128)."""
+    q, nk, nv, kp, vp, pos, tbl, act = _paged_state(cuda_device, G, hd,
+                                                    qdt, pdt)
+    kw = dict(window=window, softcap=softcap)
+    kk, kv, pk, pv = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = ops.LAUNCHES["paged_decode_attention"]
+    o, k2, _ = ops.paged_decode_attention(q, nk, nv, kk, kv, pos, tbl, act,
+                                          **kw)
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 1
+    assert k2 is kk
+    r, _, _ = ops.paged_decode_attention(q, nk, nv, pk, pv, pos, tbl, act,
+                                         mode="plain", **kw)
+    if qdt == torch.float32:
+        torch.testing.assert_close(o, r, **F32_TOL)
+    else:
+        torch.testing.assert_close(o.float(), r.float(), rtol=0,
+                                   atol=BF16_ATOL)
+    assert torch.equal(_bits(kk[1:]), _bits(pk[1:]))
+    assert torch.equal(_bits(kv[1:]), _bits(pv[1:]))
+    P, ps, KV, _ = kp.shape
+    ridx = (tbl.long()[:, :, None] * ps
+            + torch.arange(ps, device=cuda_device)).reshape(8, -1)
+    od = ops.decode_attention(q, kk.view(P * ps, KV, hd)[ridx],
+                              kv.view(P * ps, KV, hd)[ridx], pos, **kw)
+    assert torch.equal(_bits(o), _bits(od))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_attention_rejects_what_it_does_not_take(
+        cuda_device):
+    q, nk, nv, kp, vp, pos, tbl, act = _paged_state(cuda_device, 2, 128,
+                                                    torch.float32,
+                                                    torch.bfloat16)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode_attention(q, nk, nv, kp, vp, pos, tbl.long(), act)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_decode_attention(q, nk, nv, kp, vp, pos, tbl.cpu(), act,
+                                   mode="kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speculate", [0, 3])
+def test_cuda_paged_server_streams_equal_dense(cuda_device, speculate):
+    """A small f32 model served paged on the card (fused kernel) gives the
+    dense server's streams, with and without speculative decoding."""
+    from repro_torch.adapters import InMemoryRegistry, extract_delta
+    from repro_torch.adapters.testing import perturb_rows
+    from repro_torch.runtime.serve_config import (KVConfig, ServeConfig,
+                                                  SpecConfig)
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    cfg = ModelConfig(name="tiny-gqa", family="dense", num_layers=4,
+                      d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                      vocab_size=256, remat=False, dtype="float32")
+    params = tmodel.init_params(cfg, device=cuda_device,
+                                generator=torch.Generator(
+                                    cuda_device).manual_seed(0))
+    reg = InMemoryRegistry({"T": extract_delta(params, perturb_rows(
+        params, rows=(1, 3), scale=0.05, seed=1), meta={"adapter_id": "T"})})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, 32) for _ in range(6)]
+    outs = {}
+    for layout, spec in (("dense", 0), ("paged", speculate)):
+        srv = DecodeServer(cfg, params, ServeConfig(
+            batch_slots=3, max_seq=128, prefill_chunk=32,
+            kv=KVConfig(layout=layout, page_size=16),
+            spec=SpecConfig(draft=spec)), registry=reg)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=10,
+                        adapter_id=[None, "T"][i % 2])
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            srv.submit(r)
+        before = ops.LAUNCHES["paged_decode_attention"]
+        srv.run_until_drained()
+        launched = ops.LAUNCHES["paged_decode_attention"] - before
+        assert (launched > 0) == (layout == "paged")
+        outs[layout] = [r.out for r in reqs]
+    assert outs["paged"] == outs["dense"]

@@ -138,9 +138,7 @@ def test_device_is_never_silently_cpu(setup, monkeypatch):
         tserve.main(["--quick"])
 
 
-@pytest.mark.parametrize("change", [
-    dict(kv={"layout": "paged"}), dict(spec={"draft": 2}),
-    dict(sched={"cache_bytes": 1 << 20})])
+@pytest.mark.parametrize("change", [dict(sched={"cache_bytes": 1 << 20})])
 def test_unported_serving_features_raise(setup, change):
     _, _, _, cfg, params, reg = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -188,7 +186,8 @@ def test_launcher_quick_on_cpu(capsys, tmp_path):
 def test_port_imports_neither_jax_nor_repro():
     """Importing every module of the port (and chip_smoke.py) in a fresh
     interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
-    training slice's modules are among them."""
+    training slice's and the paged serving slice's modules are among
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -205,7 +204,9 @@ def test_port_imports_neither_jax_nor_repro():
         "    'optim.q8adam', 'optim.schedule', 'kernels.masked_adam',\n"
         "    'trainers.blockllm', 'trainers.full_adam', 'data.pipeline',\n"
         "    'runtime.train_loop', 'runtime.compression', 'launch.train',\n"
-        "    'obs.emit', 'runtime.straggler')}\n"
+        "    'obs.emit', 'runtime.straggler', 'runtime.paged_kv',\n"
+        "    'runtime.serve_loop', 'kernels.decode_attention', 'kernels.ops',\n"
+        "    'models.model', 'adapters.delta')}\n"
         "missing = sorted(need - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 55 else 0)\n")
