@@ -75,6 +75,32 @@ What it does, failing (non-zero exit, no result line) on any error:
 13. the paged decode step against the dense one at 300-900-row
    contexts in alternating segments, and a ``torch.profiler`` window of
    the paged decode step, beside phase 5's dense one;
+14. the hybrid RG-LRU family (the port's slice 4): the RG-LRU scan
+   kernel against its plain version, bitwise (y and h_last, with and
+   without h0, forward and reversed, at [8, 256, 2560], [2, 96, 192] and
+   [1, 33, 130]), the backward through ``ops.rglru_scan`` (da, db, dh0
+   bitwise), and its forward and reversed times beside the bound and the
+   plain version;
+15. the decode kernel at ``recurrentgemma-2b``'s local layers (MQA, 10
+   query heads, head_dim 256, a ring over the 2048-token window) against
+   its plain version with phase 2's tolerances, and its time;
+16. the training main path: ``python -m repro_torch.launch.train --arch
+   recurrentgemma-2b --reduce 0 --optimizer blockllm --batch 8 --seq 256
+   --steps 8`` (full width and depth, remat on) with the launch counts
+   reset just before and read just after: every loss finite, the first
+   within 1.0 of ln(vocab), none more than 0.5 above the first; the scan
+   launches equal to those the recorded selections give (18 forward
+   scans per step, plus one recompute and one backward scan per
+   recurrent block the gradient passes through), the masked-Adam
+   launches one per selected leaf per non-refresh step; step times and
+   peak memory; a ``torch.profiler`` window of 2 more steps; full
+   ``adam``'s peak at one step (BlockLLM must stay below it); 6 reduced
+   steps on the card against the CPU;
+17. checkpoint -> crash -> resume -> export -> serve at full width and 5
+   layers (both stage shapes): resume bitwise, the exported tenant served
+   (per-token priming, 2 slots, so slots are reused) with the merged
+   weights' streams, the reused slot's stream equal to a fresh server's,
+   one decode-attention launch per local layer per decode pass;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -108,6 +134,10 @@ LOGIT_BF16_TOL = 0.25     # bf16 model: the full path rounds probabilities
 ADAM_F32_ULPS = 2         # masked Adam: the kernel and its plain version do
 ADAM_BF16_ULPS = 1        # the same IEEE ops in the same order (no FMA)
 SERVE_KERNELS = ("decode_attention", "scatter_swap")
+RG_ARCH = "recurrentgemma-2b"
+RG_TRAIN_ARGV = ["--arch", RG_ARCH, "--reduce", "0", "--optimizer",
+                 "blockllm", "--batch", "8", "--seq", "256", "--steps", "8"]
+RG_SCAN_SHAPES = ((8, 256, 2560), (2, 96, 192), (1, 33, 130))
 PAGED_ARGV = ["--arch", ARCH, "--reduce", "0", "--attn-impl", "kernel",
               "--demo-adapters", "2", "--slots", "8", "--max-seq", "1024",
               "--requests", "16", "--new-tokens", "32", "--paged",
@@ -1134,11 +1164,12 @@ def time_masked_adam(torch, ops, results):
     torch.cuda.empty_cache()
 
 
-def reference_small(torch, np):
-    """Small-input reference: 6 BlockLLM steps of reduced internlm2 (f32)
-    on the card (the kernels) and on the CPU (their plain versions), from
-    the same weights and batches, f32 and Q8 moments.  Adam eps 1e-3, as
-    in tests/test_torch_blockllm.py (with 1e-8 the refresh-step mask is
+def reference_small(torch, np, arch=ARCH, q8s=(False, True), **replace):
+    """Small-input reference: 6 BlockLLM steps of ``arch`` reduced by 8
+    (f32; ``replace``: further config fields) on the card (the kernels)
+    and on the CPU (their plain versions), from the same weights and
+    batches, with the moments of ``q8s``.  Adam eps 1e-3, as in
+    tests/test_torch_blockllm.py (with 1e-8 the refresh-step mask is
     decided by rounding).  Losses within rtol 1e-4, the same selections."""
     from repro_torch import trainers
     from repro_torch.adapters import copy_tree
@@ -1149,13 +1180,14 @@ def reference_small(torch, np):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models import model as model_lib
     from repro_torch.optim.adam import Adam
-    cfg = reduce_config(get_config(ARCH), 8).replace(dtype="float32")
+    cfg = reduce_config(get_config(arch), 8).replace(dtype="float32",
+                                                     **replace)
     params = model_lib.init_params(cfg, generator=torch.Generator(
         "cpu").manual_seed(4), device="cpu")
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                     global_batch=4, seed=4))
     sel = SelectorConfig(sparsity=0.9, static_k_frac=0.34, reselect_every=3)
-    for q8 in (False, True):
+    for q8 in q8s:
         runs = {}
         for dev, fused in (("cuda", "kernel"), ("cpu", "plain")):
             tr = trainers.handle(
@@ -1171,7 +1203,8 @@ def reference_small(torch, np):
                    ("stack_idx", "probe_idx", "active_leaves"))
         ok = rel <= 1e-4 and same and np.isfinite(lc).all()
         print(f"small-input reference ({'Q8' if q8 else 'f32'} moments, "
-              f"reduced {ARCH}, 6 steps, 2 reselections): card (kernels) "
+              f"reduced {arch} ({cfg.num_layers} layers), 6 steps, 2 "
+              f"reselections): card (kernels) "
               f"vs CPU (plain) losses max rel diff {rel:.2e} (rtol 1e-4), "
               f"same selections {same} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1226,9 +1259,10 @@ def train_main_path(torch, np, ops):
     return launches, peak, report
 
 
-def profile_train(torch, core, state, pipe, first):
+def profile_train(torch, core, state, pipe, first, arch=ARCH):
     """2 steady BlockLLM steps under torch.profiler: wall vs device busy,
-    the masked-Adam kernels' share, the top kernels."""
+    the masked-Adam kernels' (and RG-LRU scan kernel's) share, the top
+    kernels."""
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1244,18 +1278,20 @@ def profile_train(torch, core, state, pipe, first):
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
     adam = sum(e.self_device_time_total for e in rows
                if "masked_adam" in e.key) / 1e3 / n
-    print(f"train step profile ({ARCH}, blockllm f32 moments, fused "
+    print(f"train step profile ({arch}, blockllm f32 moments, fused "
           f"kernel, batch 8 x 256, {n} steady steps): wall {wall_ms:.1f} "
           f"ms/step, device busy {busy:.1f} ms/step, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.1%}, masked_adam "
           f"{adam:.3f} ms/step ({adam / max(busy, 1e-9):.1%} of busy)")
     groups = {"gemm": 0.0, "elementwise/copy": 0.0, "reduce/softmax": 0.0,
-              "masked_adam": 0.0, "other": 0.0}
+              "masked_adam": 0.0, "rglru scan": 0.0, "other": 0.0}
     for e in rows:
         name = e.key.lower()
         t = e.self_device_time_total / 1e3 / n
         if "masked_adam" in name:
             groups["masked_adam"] += t
+        elif "rglru_scan" in name:
+            groups["rglru scan"] += t
         elif any(w in name for w in ("gemm", "cutlass", "sm90_", "nvjet",
                                      "matmul")):
             groups["gemm"] += t
@@ -1273,9 +1309,10 @@ def profile_train(torch, core, state, pipe, first):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
               f"{e.count // n:5d} calls/step  {e.key[:70]}")
-    (OUT / "train_profile.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=40))
-    return state
+    (OUT / f"train_profile_{arch}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=40))
+    return state, dict(wall_ms=wall_ms, busy_ms=busy, **groups)
 
 
 def train_api(torch, np, ops, q8_peak, q8_report):
@@ -1314,7 +1351,7 @@ def train_api(torch, np, ops, q8_peak, q8_report):
     if launches["masked_adam"] == 0 or not np.isfinite(losses).all():
         raise AssertionError("masked_adam did not launch (or the loss is "
                              "not finite) on the f32 path")
-    state = profile_train(torch, core, state, pipe, 8)
+    state, _ = profile_train(torch, core, state, pipe, 8)
     del state, core
     torch.cuda.empty_cache()
     core = trainers.make("adam", cfg, adam=Adam(lr=1e-3), device="cuda")
@@ -1346,11 +1383,18 @@ def train_api(torch, np, ops, q8_peak, q8_report):
     return launches
 
 
-def checkpoint_export_serve(torch, np, ops):
+def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
     """Checkpoint -> crash -> resume -> export -> serve, full width, depth
-    cut to 4 layers (full depth writes about 12 GB of npz per checkpoint).
-    blockllm+q8 (the fused Q8 kernel), patience 2 so it reselects, the
-    leaf units always active (restore takes the fresh state's structure)."""
+    cut to ``layers`` (full depth writes about 12 GB of npz per
+    checkpoint).  blockllm+q8 (the fused Q8 kernel), patience 2 so it
+    reselects, the leaf units always active (restore takes the fresh
+    state's structure).  The tenant is served over ``slots`` slots.  A
+    model with recurrent blocks is primed token by token: there the
+    decode-attention launches must equal (local layers) x (decode passes,
+    priming included), and the last request, in a reused slot, must give
+    the stream a fresh server gives it.  The swap kernel must launch
+    exactly when the delta has row entries (a leaf whose every row
+    trained is exported, and swapped in, whole)."""
     import shutil
     from repro_torch import trainers
     from repro_torch.adapters import AdapterRegistry, copy_tree
@@ -1364,7 +1408,7 @@ def checkpoint_export_serve(torch, np, ops):
     from repro_torch.runtime import train_loop
     from repro_torch.runtime.serve_config import ServeConfig
     from repro_torch.runtime.serve_loop import DecodeServer, Request
-    cfg = get_config(ARCH).replace(num_layers=4)
+    cfg = get_config(arch).replace(num_layers=layers)
     params0 = model_lib.init_params(cfg, generator=torch.Generator(
         "cuda").manual_seed(7), device="cuda")
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
@@ -1405,7 +1449,8 @@ def checkpoint_export_serve(torch, np, ops):
         a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
                                            b.reshape(-1).view(torch.uint8))
         for a, b in zip(la, lb)))
-    print(f"crash-resume ({ARCH} width, 4 layers, blockllm+q8, ckpt at 3, "
+    print(f"crash-resume ({arch} width, {layers} layers, blockllm+q8, "
+          f"stages {cfg.stages()}, ckpt at 3, "
           f"crash at 5, resumed to 6; {whole.state.meta['reselections']} "
           f"selections): resumed == uninterrupted bitwise over {len(la)} "
           f"leaves and the host meta: {same} "
@@ -1421,9 +1466,9 @@ def checkpoint_export_serve(torch, np, ops):
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 48)))
                for _ in range(4)]
-    scfg = ServeConfig(batch_slots=4, max_seq=128, attn_impl="kernel")
+    scfg = ServeConfig(batch_slots=slots, max_seq=128, attn_impl="kernel")
 
-    def serve(params, reg, tenant):
+    def serve(params, reg, tenant, prompts):
         srv = DecodeServer(cfg, params, scfg, registry=reg)
         reqs = [Request(rid=i, prompt=p, max_new_tokens=16,
                         adapter_id=tenant) for i, p in enumerate(prompts)]
@@ -1432,24 +1477,355 @@ def checkpoint_export_serve(torch, np, ops):
         srv.run_until_drained()
         torch.cuda.synchronize()
         out = [r.out for r in reqs]
+        passes = srv.steps + srv.prefill_dispatches
         del srv
-        return out
+        return out, passes
 
     ops.reset_launches()
-    got = serve(params0, registry, "tuned")
+    got, passes = serve(params0, registry, "tuned", prompts)
     launches = dict(ops.LAUNCHES)
-    want = serve(resumed.merged_params(), None, None)
+    want, _ = serve(resumed.merged_params(), None, None, prompts)
     ok = got == want and all(len(o) == 16 for o in got)
-    print(f"serve the exported tenant (4 requests, kernel attention): "
-          f"launches {launches}; tokens equal a server with the trained "
-          f"rows written in: {ok}")
-    if not ok or not all(launches[k] for k in SERVE_KERNELS):
+    # a leaf whose every row trained is exported (and swapped in) whole;
+    # the others as row entries, through the swap kernel
+    row_entries = sum(e.idx is not None for e in delta.entries.values())
+    print(f"serve the exported tenant ({len(prompts)} requests over {slots} "
+          f"slots, kernel attention; the delta holds {row_entries} row "
+          f"entries of {len(delta.entries)}): launches {launches}; tokens "
+          f"equal a server with the trained rows written in: {ok}")
+    if not ok or not launches["decode_attention"] \
+            or bool(launches["scatter_swap"]) != bool(row_entries):
         raise AssertionError("the served tenant disagrees, or a serving "
                              "kernel did not launch")
+    if not model_lib.supports_slot_prefill(cfg):
+        n_local = sum(t != "recurrent" for t in cfg.layer_types())
+        fresh, _ = serve(params0, registry, "tuned", prompts[-1:])
+        print(f"  per-token priming: {passes} decode passes (priming "
+              f"included) x {n_local} local-attention layers = "
+              f"{passes * n_local} decode_attention launches, counted "
+              f"{launches['decode_attention']}; the last request (a reused "
+              f"slot) equals a fresh server's stream: {fresh[0] == got[-1]}")
+        if launches["decode_attention"] != passes * n_local:
+            raise AssertionError("decode_attention launches are not one "
+                                 "per local layer per decode pass")
+        if fresh[0] != got[-1]:
+            raise AssertionError("a request in a reused slot differs from "
+                                 "a fresh server's")
     del resumed, params0, delta, registry
     shutil.rmtree(SCRATCH, ignore_errors=True)
     torch.cuda.empty_cache()
 
+
+
+# --------------------------------------------------------------------- #
+# phases 14-17: the hybrid RG-LRU family (slice 4)
+# --------------------------------------------------------------------- #
+
+
+def scan_inputs(torch, B, S, W, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    a = torch.rand(B, S, W, generator=g, device="cuda") * 0.199 + 0.8
+    b = torch.randn(B, S, W, generator=g, device="cuda") * 0.1
+    h0 = torch.randn(B, W, generator=g, device="cuda") * 0.1
+    return a, b, h0
+
+
+def same_bits(torch, x, y) -> bool:
+    return torch.equal(x.contiguous().view(torch.int32),
+                       y.contiguous().view(torch.int32))
+
+
+def check_rglru_scan(torch, rs, ops, results):
+    """The scan kernel against its plain version, bitwise (y, h_last; with
+    and without h0; forward and reversed), the backward through
+    ``ops.rglru_scan`` (da, db, dh0 bitwise), and its times at the main
+    path's shape beside the bound and the plain version."""
+    for B, S, W in RG_SCAN_SHAPES:
+        for with_h0 in (True, False):
+            for reverse in (False, True):
+                a, b, h0 = scan_inputs(torch, B, S, W, 0)
+                h0 = h0 if with_h0 else None
+                ky, kh = rs.rglru_scan_cuda(a, b, h0, reverse=reverse)
+                py, ph = rs.rglru_scan_plain(a, b, h0, reverse=reverse)
+                torch.cuda.synchronize()
+                ok = (same_bits(torch, ky, py) and same_bits(torch, kh, ph)
+                      and bool(torch.isfinite(ky).all()))
+                print(f"rglru_scan [{B}, {S}, {W}] h0 "
+                      f"{'given' if with_h0 else 'none'}"
+                      f"{' reversed' if reverse else ''}: y and h_last "
+                      f"bitwise vs plain {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("rglru_scan disagrees with its "
+                                         "plain version")
+        ins = scan_inputs(torch, B, S, W, 1)
+        outs = {}
+        for mode in ("kernel", "plain"):
+            ts = [t.clone().requires_grad_() for t in ins]
+            y, h = ops.rglru_scan(*ts, mode=mode)
+            grads = torch.autograd.grad((y ** 2).sum() + (h ** 2).sum(), ts)
+            outs[mode] = [t.detach() for t in (y, h) + grads]
+        torch.cuda.synchronize()
+        ok = all(same_bits(torch, k, p) for k, p in zip(outs["kernel"],
+                                                        outs["plain"]))
+        print(f"rglru_scan backward [{B}, {S}, {W}] through ops.rglru_scan "
+              f"(kernel vs plain): y, h_last, da, db, dh0 bitwise "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rglru_scan's backward disagrees with its "
+                                 "plain version")
+    # times at the main path's shape; two input copies (126 MB) > L2
+    B, S, W = RG_SCAN_SHAPES[0]
+    ins = [scan_inputs(torch, B, S, W, 2 + i) for i in range(2)]
+    zero = torch.zeros(B, W, device="cuda")
+    ms = cuda_time_ms(lambda i: rs.rglru_scan_cuda(
+        ins[i % 2][0], ins[i % 2][1], zero), 50)
+    bwd_ms = cuda_time_ms(lambda i: rs.rglru_scan_cuda(
+        ins[i % 2][0], ins[i % 2][1], None, reverse=True), 50)
+    plain_ms = cuda_time_ms(lambda i: rs.rglru_scan_plain(
+        ins[i % 2][0], ins[i % 2][1], zero), 5)
+    nbytes = rs.scan_bytes(B, S, W)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * S * W / F32_FLOPS * 1e3
+    results["rglru_scan"] = dict(
+        max_abs_err=0.0, ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+    print(f"rglru_scan time [{B}, {S}, {W}] f32: forward {ms:.4f} ms, "
+          f"reversed (backward) {bwd_ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB), plain "
+          f"{plain_ms:.3f} ms; no one PyTorch call computes a linear "
+          f"recurrence")
+    del ins
+    torch.cuda.empty_cache()
+
+
+def check_decode_attention_g10(torch, da, results):
+    """The decode kernel at recurrentgemma-2b's local layers: MQA, 10
+    query heads, head_dim 256, a ring over the 2048-token window (slots
+    before and after the wrap), bf16 and f32 q, phase 2's tolerances;
+    then its time with every slot past the wrap."""
+    from repro_torch.models.layers import decode_valid
+    g = torch.Generator("cuda").manual_seed(14)
+    B, C, KV, G, hd = 8, 2048, 1, 10, 256
+    pos = torch.tensor([0, 100, 2047, 2048, 2500, 3000, 4095, 9000],
+                       dtype=torch.int32, device="cuda")
+    k = torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
+    kw = dict(window=C, ring=True)
+    worst = 0.0
+    for qd in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, 1, KV * G, hd, generator=g, device="cuda").to(qd)
+        o = da.decode_attention_cuda(q, k, v, pos, **kw)
+        r = da.decode_attention_plain(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - r.float()).abs()
+        if qd == torch.float32:
+            tol = ATTN_F32_ATOL + ATTN_F32_RTOL * r.float().abs()
+            tol_s = f"rtol {ATTN_F32_RTOL} atol {ATTN_F32_ATOL}"
+        else:
+            tol = torch.full_like(err, ATTN_BF16_ATOL)
+            tol_s = f"atol {ATTN_BF16_ATOL}"
+            worst = err.max().item()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(o).all())
+        print(f"decode_attention [G10 hd256 ring 2048] B{B} KV{KV} q "
+              f"{str(qd)[6:]} cache bfloat16, pos {pos.tolist()}: "
+              f"max|kernel-plain| {err.max().item():.3g} ({tol_s}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("decode_attention at G = 10 disagrees with "
+                                 "its plain version")
+    copies = 8
+    q = torch.randn(B, 1, KV * G, hd, generator=g, device="cuda").bfloat16()
+    ks = [torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
+          for _ in range(copies)]
+    vs = [torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
+          for _ in range(copies)]
+    pos = torch.tensor([2100, 2500, 3000, 3500, 4000, 5000, 6000, 9000],
+                       dtype=torch.int32, device="cuda")
+    mask = decode_valid(pos, C, window=C, ring=True)[:, None, None, :]
+    qt = q.transpose(1, 2)
+    fns = {
+        "kernel": lambda i: da.decode_attention_cuda(
+            q, ks[i % copies], vs[i % copies], pos, **kw),
+        "plain": lambda i: da.decode_attention_plain(
+            q, ks[i % copies], vs[i % copies], pos, **kw),
+        "sdpa": lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qt, ks[i % copies].transpose(1, 2),
+            vs[i % copies].transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)}
+    dev_ms = {k: graph_time_ms(f) for k, f in fns.items()}
+    rows = B * C                                 # every slot past the wrap
+    nbytes = 2 * q.nbytes + rows * KV * hd * 2 * 2
+    flops = rows * KV * G * hd * 4               # QK and PV
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    results["decode_attention"].update(
+        g10_max_abs_err=worst, g10_ms=dev_ms["kernel"],
+        g10_plain_ms=dev_ms["plain"], g10_bound_ms=max(t_bytes, t_ops),
+        g10_bound_by="bytes" if t_bytes >= t_ops else "operations",
+        g10_library_ms=dev_ms["sdpa"])
+    print(f"decode_attention time [G10 hd256 ring 2048] B{B} bf16, every "
+          f"slot past the wrap: device (graph replay) kernel "
+          f"{dev_ms['kernel']:.4f} ms, plain {dev_ms['plain']:.4f} ms, sdpa "
+          f"{dev_ms['sdpa']:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    del ks, vs
+    torch.cuda.empty_cache()
+
+
+def layer_of(cfg):
+    """Stack id "s{si}/pos{j}" and row g -> layer index, and the layer
+    indices of the recurrent blocks."""
+    offsets, off = [], 0
+    for pattern, groups in cfg.stages():
+        offsets.append(off)
+        off += len(pattern) * groups
+
+    def index(sid, g):
+        si, j = sid.split("/")
+        pattern = cfg.stages()[int(si[1:])][0]
+        return offsets[int(si[1:])] + g * len(pattern) + int(j[3:])
+    recurrent = [i for i, t in enumerate(cfg.layer_types())
+                 if t == "recurrent"]
+    return index, recurrent
+
+
+def rg_train_main_path(torch, np, ops):
+    """The slice's main path: the training launcher on recurrentgemma-2b
+    at full width and depth, f32 moments.  The scan launches are worked
+    out from each step's selection, recorded as the loop calls
+    ``TrainerHandle.train_step``: every step runs the 18 recurrent
+    blocks' forward scans, and with remat each block the gradient passes
+    through (every block from the lowest selected or probe row up, all of
+    them when the tied embedding trains) recomputes its forward and runs
+    one backward scan."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.trainers import api
+    print(f"train main path (slice 4): python -m repro_torch.launch.train "
+          f"{' '.join(RG_TRAIN_ARGV)}")
+    seen, peaks = [], []
+    step = api.TrainerHandle.train_step
+
+    def spy(self, batch):
+        # the peak since the last mark: init before step 0, else the step
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        m = self.state.meta
+        seen.append({"stack_idx": m["stack_idx"],
+                     "probe_idx": m["probe_idx"],
+                     "active_leaves": list(m["active_leaves"]),
+                     "refresh": bool(m["needs_mask_refresh"]),
+                     "leaves": len(_flatten_with_names(
+                         self.state.arrays["sel"])[1])})
+        return step(self, batch)
+
+    api.TrainerHandle.train_step = spy
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        out = tlaunch.main(RG_TRAIN_ARGV)
+    finally:
+        api.TrainerHandle.train_step = step
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peaks.append(torch.cuda.max_memory_allocated())
+    peak = max(peaks)
+    losses, step_ms = out["losses"], out["step_ms"]
+    rest = np.asarray(step_ms[1:])
+    cfg = out["trainer"].cfg
+    index, recurrent = layer_of(cfg)
+    want_fwd = want_bwd = want_adam = 0
+    for s in seen:
+        if "embed" in s["active_leaves"]:
+            lowest = 0
+        else:
+            rows = [index(sid, g) for d in (s["stack_idx"], s["probe_idx"])
+                    for sid, gs in d.items() for g in gs]
+            lowest = min(rows) if rows else cfg.num_layers
+        n_bwd = sum(i >= lowest for i in recurrent)
+        want_fwd += len(recurrent) + (n_bwd if cfg.remat else 0)
+        want_bwd += n_bwd
+        want_adam += 0 if s["refresh"] else s["leaves"]
+    print(f"train main path: losses per step {[round(x, 4) for x in losses]}"
+          f" (first - ln V {losses[0] - np.log(cfg.vocab_size):+.3f}, "
+          f"largest rise over the first {max(losses) - losses[0]:+.4f}); "
+          f"step ms: refresh step {step_ms[0]:.1f}, the other {len(rest)} "
+          f"p50 {np.percentile(rest, 50):.1f} p99 "
+          f"{np.percentile(rest, 99):.1f}; {wall:.1f} s wall including "
+          f"init; peak device memory {peak / 2 ** 30:.2f} GiB (init "
+          f"{peaks[0] / 2 ** 30:.2f}, per step "
+          f"{[round(x / 2 ** 30, 2) for x in peaks[1:]]})")
+    print(f"train main path: launches {launches}; from the selections "
+          f"({len(recurrent)} recurrent blocks, remat {cfg.remat}, embed "
+          f"trained at {sum('embed' in s['active_leaves'] for s in seen)} "
+          f"of {len(seen)} steps, {len(seen[0]['stack_idx'])} stacks): "
+          f"rglru_scan {want_fwd}, rglru_scan_bwd {want_bwd}, masked_adam "
+          f"{want_adam}")
+    if not (np.isfinite(losses).all() and len(losses) == 8):
+        raise AssertionError("train main path: non-finite or missing loss")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]:.3f} is not near "
+                             f"ln(vocab) = {np.log(cfg.vocab_size):.3f}")
+    if max(losses) > losses[0] + 0.5:
+        raise AssertionError("the loss rose more than 0.5 above the first")
+    if launches["rglru_scan"] != want_fwd:
+        raise AssertionError("rglru_scan launches differ from the count "
+                             "the selections give")
+    if not 0 < launches["rglru_scan_bwd"] <= len(recurrent) * len(seen) \
+            or launches["rglru_scan_bwd"] != want_bwd:
+        raise AssertionError("rglru_scan_bwd launches out of range")
+    if launches["masked_adam"] != want_adam or want_adam == 0:
+        raise AssertionError("masked_adam did not launch once per selected "
+                             "leaf per (non-refresh) step")
+    report = out["trainer"].memory_report()
+    trainer = out["trainer"]
+    del out
+    return trainer, launches, peak, report
+
+
+def rg_train(torch, np, ops):
+    """Phase 16: the main path, 2 more steps of its trainer under the
+    profiler, full Adam's peak at one step, and the small-input
+    reference on the card against the CPU."""
+    from repro_torch import trainers
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim.adam import Adam
+    trainer, launches, peak, report = rg_train_main_path(torch, np, ops)
+    cfg = trainer.cfg
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                    global_batch=8, seed=0))
+    state, prof = profile_train(torch, trainer.core, trainer.state, pipe,
+                                8, arch=RG_ARCH)
+    del trainer, state
+    torch.cuda.empty_cache()
+    core = trainers.make("adam", cfg, adam=Adam(lr=1e-3), device="cuda")
+    state = core.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state, m = core.step(state, pipe.batch(0))
+    adam_ms = (time.monotonic() - t0) * 1e3
+    torch.cuda.synchronize()
+    peak_adam = torch.cuda.max_memory_allocated()
+    rep_adam = core.memory_report(state)
+    del state, core
+    torch.cuda.empty_cache()
+    gib = lambda r: {k: round(v / 2 ** 30, 3) for k, v in r.items()}
+    print(f"peak device memory ({RG_ARCH}, batch 8 x 256): blockllm "
+          f"{peak / 2 ** 30:.2f} GiB, adam {peak_adam / 2 ** 30:.2f} GiB "
+          f"(one step, loss {m['loss']:.4f}, {adam_ms:.1f} ms incl. the "
+          f"first use)")
+    for name, rep in (("blockllm", report), ("adam", rep_adam)):
+        print(f"  memory_report {name} (GiB): {gib(rep)}")
+    if not np.isfinite(m["loss"]) or peak >= peak_adam:
+        raise AssertionError("adam's loss is not finite, or BlockLLM's peak "
+                             "is not below Adam's")
+    reference_small(torch, np, arch=RG_ARCH, q8s=(False,), num_layers=5)
+    torch.cuda.empty_cache()
+    return launches, prof
 
 
 def main() -> int:
@@ -1480,6 +1856,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import masked_adam as ma
+    from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import scatter_apply as sa
     t0 = time.monotonic()
     build.build_all()
@@ -1487,9 +1864,11 @@ def main() -> int:
           f"(nvcc sm_90a, one process per source, in parallel)")
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
-        wants = {"decode_attention": ["Li4ELi2E"],        # hd 128, G 2
+        wants = {"decode_attention": ["Li4ELi2E",         # hd 128, G 2
+                                      "Li8ELi10E"],       # hd 256, G 10
                  "paged_decode_attention": ["Li4ELi2ELb1E"],
                  "scatter_swap": ["scatter_swap"],
+                 "rglru_scan": ["rglru_scan"],
                  # f32 p, stored mask: the main path's instantiations
                  "masked_adam": ["masked_adam_kernelIfLb0ELb1E",
                                  "masked_adam_q8_kernelIfLb0ELb1E"]}[name]
@@ -1577,33 +1956,55 @@ def main() -> int:
     profile_decode(torch, np, paged=True)
     torch.cuda.empty_cache()
 
+    # phase 14: the RG-LRU scan kernel against its plain version, times
+    check_rglru_scan(torch, rs, ops, results)
+
+    # phase 15: the decode kernel at recurrentgemma-2b's local layers
+    check_decode_attention_g10(torch, da, results)
+
+    # phase 16: BlockLLM training of recurrentgemma-2b through the launcher
+    rg_launches, _ = rg_train(torch, np, ops)
+
+    # phase 17: checkpoint -> crash -> resume -> export -> serve, 5 layers
+    # (both stage shapes), 2 slots so slots are reused.  Every stack has
+    # one row here, so each trained leaf changes in all its rows and the
+    # delta holds whole leaves, swapped in without the swap kernel
+    checkpoint_export_serve(torch, np, ops, arch=RG_ARCH, layers=5, slots=2)
+
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path
     launches = {**{k: launches[k] for k in SERVE_KERNELS},
                 "paged_decode_attention": p_launches["paged_decode_attention"],
                 "masked_adam_q8": t_launches["masked_adam_q8"],
-                "masked_adam": f32_launches["masked_adam"]}
+                "masked_adam": f32_launches["masked_adam"],
+                "rglru_scan": (rg_launches["rglru_scan"]
+                               + rg_launches["rglru_scan_bwd"])}
     path_of = {"decode_attention": "serving main path",
                "scatter_swap": "serving main path",
                "paged_decode_attention": "paged serving main path",
                "masked_adam_q8": "training main path (blockllm+q8)",
-               "masked_adam": "blockllm f32 run (fused_update='kernel')"}
+               "masked_adam": "blockllm f32 run (fused_update='kernel')",
+               "rglru_scan": f"{RG_ARCH} training main path (forward "
+                             f"{rg_launches['rglru_scan']} + backward "
+                             f"{rg_launches['rglru_scan_bwd']})"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"decode_attention": csrc + "decode_attention.cu",
                "scatter_swap": csrc + "scatter_swap.cu",
                "paged_decode_attention": csrc + "paged_decode_attention.cu",
                "masked_adam": csrc + "masked_adam.cu",
-               "masked_adam_q8": csrc + "masked_adam.cu"}
+               "masked_adam_q8": csrc + "masked_adam.cu",
+               "rglru_scan": csrc + "rglru_scan.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:186",
                 "scatter_swap": "src/repro/kernels/scatter_apply.py:81",
                 "paged_decode_attention":
                     "src/repro/kernels/decode_attention.py:352",
                 "masked_adam": "src/repro/kernels/masked_adam.py:152",
-                "masked_adam_q8": "src/repro/kernels/masked_adam.py:117"}
+                "masked_adam_q8": "src/repro/kernels/masked_adam.py:117",
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:67"}
     kernels = []
     for name in ("decode_attention", "scatter_swap", "paged_decode_attention",
-                 "masked_adam", "masked_adam_q8"):
+                 "masked_adam", "masked_adam_q8", "rglru_scan"):
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],

@@ -131,7 +131,10 @@ def build_step_fn(cfg, index: UnitIndex, adam, bcfg: BlockLLMConfig,
             del g_probe
 
             if refresh:
-                upds, _ = adam.processed_grad(g_sel, opt_state)
+                # only the update is needed: its new moments go at once
+                # (two f32 copies of the selection's moments; JAX's jit
+                # drops them unused)
+                upds = adam.processed_grad(g_sel, opt_state)[0]
 
                 def stack_mask(u):  # per-row (= per-layer) tau
                     tau = _masked_quantile_threshold(u, q,

@@ -376,6 +376,12 @@ int dispatch_g(int G, const Args& a, cudaStream_t s) {
     case 2: launch<TQ, TKV, EPL, 2, PAGED>(a, s); return 0;
     case 4: launch<TQ, TKV, EPL, 4, PAGED>(a, s); return 0;
     case 8: launch<TQ, TKV, EPL, 8, PAGED>(a, s); return 0;
+    case 10:  // MQA with 10 query heads (recurrentgemma-2b), dense only
+      if constexpr (!PAGED) {
+        launch<TQ, TKV, EPL, 10, PAGED>(a, s);
+        return 0;
+      }
+      break;
   }
   return -1;
 }

@@ -42,7 +42,8 @@ from repro_torch.kernels import build
 from repro_torch.models.layers import decode_valid
 
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-_KERNEL_GROUPS = (1, 2, 4, 8)
+_KERNEL_GROUPS = (1, 2, 4, 8, 10)          # 10: the dense kernel only
+_PAGED_KERNEL_GROUPS = (1, 2, 4, 8)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -278,10 +279,11 @@ def paged_decode_attention_cuda(q, new_k, new_v, k_pool, v_pool, pos,
                          f", table {tuple(page_table.shape)}, active "
                          f"{tuple(active.shape)}")
     G = H // KV
-    if hd not in _KERNEL_HEAD_DIMS or G not in _KERNEL_GROUPS:
+    if hd not in _KERNEL_HEAD_DIMS or G not in _PAGED_KERNEL_GROUPS:
         raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
-                         f"query heads per kv head in {_KERNEL_GROUPS}; got "
-                         f"head_dim {hd}, group {G}")
+                         f"query heads per kv head in "
+                         f"{_PAGED_KERNEL_GROUPS}; got head_dim {hd}, "
+                         f"group {G}")
     if (q.dtype not in _KERNEL_DTYPES or k_pool.dtype not in _KERNEL_DTYPES
             or v_pool.dtype != k_pool.dtype):
         raise ValueError(f"kernel takes f32/bf16 q and one f32/bf16 pool "

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.kernels.ops`` for the ported kernels: decode
 attention (dense and the fused paged write+attend), the row
-scatter-swap and masked Adam (f32 and Q8 moments).
+scatter-swap, masked Adam (f32 and Q8 moments) and the RG-LRU scan
+(a ``torch.autograd.Function``: the kernel forward and backward).
 Every op takes ``mode``:
 
 - ``auto``: the Hopper kernel for a CUDA tensor, the plain PyTorch
@@ -30,6 +31,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import _flatten_with_names
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import masked_adam as ma
+from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import scatter_apply as sa
 from repro_torch.kernels.build import (LAUNCHES, builds,  # noqa: F401
                                        reset_launches)
@@ -276,3 +278,53 @@ def masked_adam_q8_tree(params, grads, mu_q, mu_scale, nu_q, nu_scale,
     nb = (2 * _tree_nbytes(params, mu_q, mu_scale, nu_q, nu_scale)
           + _tree_nbytes(grads, masks))
     return _profiled_call("masked_adam_q8", run, (), {}, nb, ps[0].device)
+
+
+# --------------------------------------------------------------------- #
+# RG-LRU scan (the recurrent blocks' time loop over a full sequence)
+# --------------------------------------------------------------------- #
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """``h_t = a_t * h_{t-1} + b_t`` with the reversed scan as its
+    backward (``repro.kernels.ops._rg_fwd`` / ``_rg_bwd``):
+    lam_t = a_{t+1} * lam_{t+1} + dy_t (dy[:, -1] + dh_last at the end),
+    da = lam * h_{t-1}, db = lam, dh0 = lam_0 * a_0.  Both directions run
+    the kernel (``kernel=True``) or its plain version."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, kernel):
+        fn = rs.rglru_scan_cuda if kernel else rs.rglru_scan_plain
+        y, h_last = fn(a, b, h0)
+        ctx.save_for_backward(a, y, h0)
+        ctx.kernel = kernel
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, y, h0 = ctx.saved_tensors
+        B, S, W = a.shape
+        fn = rs.rglru_scan_cuda if ctx.kernel else rs.rglru_scan_plain
+        a_next = torch.cat([a[:, 1:], a.new_zeros(B, 1, W)], dim=1)
+        dy = dy.clone(memory_format=torch.contiguous_format)
+        dy[:, -1] += dh_last
+        lam, _ = fn(a_next, dy, None, reverse=True)
+        y_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+        dh0 = lam[:, 0] * a[:, 0] if ctx.needs_input_grad[2] else None
+        return lam * y_prev, lam, dh0, None
+
+
+def rglru_scan(a, b, h0, *, mode: str = "auto"):
+    """RG-LRU linear recurrence over time, differentiable.
+
+    a, b [B, S, W] f32; h0 [B, W] f32.  Returns ``(y [B, S, W], h_last
+    [B, W])``, both f32.  Inputs are made contiguous here (the kernel
+    takes contiguous tensors only)."""
+    kernel = route(mode, a) == "kernel"
+    a, b, h0 = a.contiguous(), b.contiguous(), h0.contiguous()
+    if _PROFILER is None:
+        return _RGLRUScan.apply(a, b, h0, kernel)
+    # a/b read, y written (a-shaped), h0/hN negligible
+    nb = 2 * a.nbytes + b.nbytes
+    return _profiled_call("rglru_scan", _RGLRUScan.apply,
+                          (a, b, h0, kernel), {}, nb, a.device)

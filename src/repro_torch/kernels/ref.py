@@ -103,3 +103,16 @@ def masked_adam_q8_ref(p, g, mq, ms, vq, vs, mask, scalars, *,
     mq2, ms2 = requant(m2)
     vq2, vs2 = requant(v2)
     return p2, mq2, ms2, vq2, vs2
+
+
+def rglru_ref(a, b, h0=None):
+    """Oracle for ``rglru_scan``: h_t = a_t * h_{t-1} + b_t, a loop over
+    t in f32.  a, b [B, S, W]; h0 [B, W] or None.  Returns (y, h_last)."""
+    B, S, W = a.shape
+    h = (torch.zeros(B, W, dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = a[:, t].float() * h + b[:, t].float()
+        ys.append(h)
+    return torch.stack(ys, dim=1), h

@@ -10,8 +10,11 @@ runs on the CPU with every kernel's plain PyTorch version).
 ``--optimizer`` is a ``repro_torch.trainers`` registry lookup:
 ``blockllm``, ``blockllm+q8``, ``adam``, ``adam+q8``; ``galore``,
 ``lora``, ``badam`` and ``badam+q8`` raise ``NotImplementedError``
-(ROADMAP A8).  ``blockllm+q8`` on the card runs the fused Q8 masked-Adam
-kernel by default.  ``--reduce N`` scales the arch down (0 = full width).
+(ROADMAP A8).  ``blockllm`` and ``blockllm+q8`` on the card run the
+fused masked-Adam kernels (f32 and Q8 moments) by default.  ``--reduce
+N`` scales the arch down (0 = full width).  Hybrid archs
+(``--arch recurrentgemma-2b``) run their RG-LRU scans through the scan
+kernel, forward and backward.
 """
 from __future__ import annotations
 

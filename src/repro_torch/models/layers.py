@@ -129,3 +129,35 @@ def mlp_apply(params, x, mlp_type):
     else:
         h = F.gelu(x @ wu, approximate="tanh")
     return h @ wd
+
+
+# ---------------------------------------------------------------------------
+# conv1d (depthwise, causal): the recurrent block's temporal conv
+# ---------------------------------------------------------------------------
+
+
+def conv1d_init(width, channels, *, generator, device, groups):
+    """N(0, 0.1^2) taps ``w`` [groups, width, C] and zero bias ``b``
+    [groups, C] (JAX's distributions, one row per layer)."""
+    return {"w": torch.randn(groups, width, channels, generator=generator,
+                             device=device) * 0.1,
+            "b": torch.zeros(groups, channels, device=device)}
+
+
+def causal_conv1d(params, x, *, state=None):
+    """Depthwise causal conv.  x [B, S, C]; ``state`` [B, W - 1, C], the
+    previous W - 1 inputs (decode; None: zeros).  Returns ``(y, new_state)``
+    with ``new_state`` the last W - 1 inputs in x's dtype.  The taps are
+    contracted as one einsum over the W shifted windows, as JAX's."""
+    w = params["w"]
+    W = w.shape[0]
+    if state is None:
+        pad = x.new_zeros(x.shape[:1] + (W - 1,) + x.shape[2:])
+        xp = torch.cat([pad, x], dim=1)
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    windows = torch.stack([xp[:, i:i + S] for i in range(W)], dim=0)
+    y = torch.einsum("wbsc,wc->bsc", windows, w.to(x.dtype))
+    y = y + params["b"].to(x.dtype)
+    return y, xp[:, -(W - 1):]

@@ -1,7 +1,8 @@
-"""Dense decoder: ``ModelConfig`` -> init / forward / loss / serving steps.
+"""Decoder: ``ModelConfig`` -> init / forward / loss / serving steps.
 
-Counterpart of ``repro.models.model`` for dense, attention-only
-architectures (global and local attention blocks).  The
+Counterpart of ``repro.models.model`` for dense architectures (global
+and local attention blocks) and the hybrid RG-LRU family (recurrent
+blocks beside local attention, ``models/rglru.py``).  The
 parameter tree keeps the JAX layout — ``stages[i]["posJ"][...]`` leaves
 stacked ``[G, ...]``, one row per layer — because adapters index those
 rows and the delta fingerprint hashes the leaf paths.  ``_stack_apply``
@@ -16,9 +17,11 @@ sequence when ``S * V`` is large) takes BlockLLM's ``overlay`` of
 selected and probe rows, which replace their frozen rows layer by layer.
 
 Serving caches are updated in place (the JAX package donates them):
-the decode step writes row ``pos[b]`` of each slot only where
-``active[b]``, which for attention-only blocks is equivalent to the
-JAX server's whole-cache blend under its active mask.
+the decode step writes row ``pos[b]`` of each slot, and a recurrent
+block's state ``{"h", "conv"}``, only where ``active[b]``, which is
+equivalent to the JAX server's whole-cache blend under its active mask.
+Recurrent blocks take no chunked prefill (their state would advance on
+the padding of shorter prompts): the server primes them token by token.
 
 Paged KV (``init_paged_cache``): global-attention blocks keep pools
 ``[P, page_size, KV, hd]`` addressed through a per-slot page table
@@ -29,8 +32,8 @@ indices of a prefill chunk are computed on the host once per chunk and
 shared by every layer; the decode step copies the page table to the
 device once.
 
-Other families (MoE, recurrent, SSM, VLM, audio) are not ported yet
-(ROADMAP queue A) and raise ``NotImplementedError``.
+Other families (MoE, xLSTM, VLM, audio) are not ported yet (ROADMAP
+A9) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,14 +46,15 @@ import torch.nn.functional as F
 
 from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
-                                      ModelConfig)
+                                      BLOCK_RECURRENT, ModelConfig)
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru
 
 Pytree = Any
 
 ATTN_BLOCKS = (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN)
+PORTED_BLOCKS = ATTN_BLOCKS + (BLOCK_RECURRENT,)
 ATTN_IMPLS = ("full", "kernel")
 
 
@@ -65,16 +69,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures the port does not serve yet."""
+    """Raise for architectures the port does not run yet: dense and
+    hybrid (RG-LRU) families with attention and recurrent blocks are
+    ported."""
     why = None
-    if cfg.family != "dense" or cfg.num_experts:
-        why = f"family {cfg.family!r} (ROADMAP queue A: other families)"
+    if cfg.family not in ("dense", "hybrid") or cfg.num_experts:
+        why = f"family {cfg.family!r} (ROADMAP A9: other families)"
     elif cfg.is_encoder_decoder or cfg.vision_embed_dim:
-        why = "encoder-decoder / vision frontends (ROADMAP queue A)"
-    elif any(t not in ATTN_BLOCKS for t in cfg.layer_types()):
-        why = "non-attention blocks (ROADMAP queue A: other families)"
+        why = "encoder-decoder / vision frontends (ROADMAP A9)"
+    elif any(t not in PORTED_BLOCKS for t in cfg.layer_types()):
+        why = "mLSTM / sLSTM blocks (ROADMAP A9: other families)"
     elif not cfg.rope_theta:
-        why = "absolute positions (ROADMAP queue A: other families)"
+        why = "absolute positions (ROADMAP A9: other families)"
     if why:
         raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
 
@@ -93,7 +99,8 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     """Random weights with the JAX package's distributions (not its
     values: JAX's PRNG is not reproduced).  Normal(0, 1) * 0.02
     embeddings and head, normal / sqrt(fan_in) projections with the
-    depth-scaled output projections, zero norm scales."""
+    depth-scaled output projections, zero norm scales; recurrent blocks
+    as ``rglru.rglru_init``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(dev).manual_seed(0)
@@ -103,27 +110,36 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device=dev) * std
 
-    def block(G):
-        out_scale = 1.0 / math.sqrt(H * hd) / math.sqrt(2 * L)
+    def mlp(G):
+        down = 1.0 / math.sqrt(f) / math.sqrt(2 * L)
+        p = {"w_up": normal((G, d, f), 1 / math.sqrt(d)),
+             "w_down": normal((G, f, d), down)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            p["w_gate"] = normal((G, d, f), 1 / math.sqrt(d))
+        return p
+
+    def block(G, btype):
         p = {"ln1": {"scale": torch.zeros(G, d, device=dev)},
-             "attn": {"wq": normal((G, d, H * hd), 1 / math.sqrt(d)),
-                      "wk": normal((G, d, KV * hd), 1 / math.sqrt(d)),
-                      "wv": normal((G, d, KV * hd), 1 / math.sqrt(d)),
-                      "wo": normal((G, H * hd, d), out_scale)},
              "ln2": {"scale": torch.zeros(G, d, device=dev)}}
+        if btype == BLOCK_RECURRENT:
+            p["rec"] = rglru.rglru_init(cfg, generator=gen, device=dev,
+                                        groups=G)
+            p["mlp"] = mlp(G)
+            return p
+        out_scale = 1.0 / math.sqrt(H * hd) / math.sqrt(2 * L)
+        p["attn"] = {"wq": normal((G, d, H * hd), 1 / math.sqrt(d)),
+                     "wk": normal((G, d, KV * hd), 1 / math.sqrt(d)),
+                     "wv": normal((G, d, KV * hd), 1 / math.sqrt(d)),
+                     "wo": normal((G, H * hd, d), out_scale)}
         if f:
-            down = 1.0 / math.sqrt(f) / math.sqrt(2 * L)
-            mlp = {"w_up": normal((G, d, f), 1 / math.sqrt(d)),
-                   "w_down": normal((G, f, d), down)}
-            if cfg.mlp_type in ("swiglu", "geglu"):
-                mlp["w_gate"] = normal((G, d, f), 1 / math.sqrt(d))
-            p["mlp"] = mlp
+            p["mlp"] = mlp(G)
         return p
 
     params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
         "final_norm": {"scale": torch.zeros(d, device=dev)},
-        "stages": [{f"pos{j}": block(groups) for j in range(len(pattern))}
+        "stages": [{f"pos{j}": block(groups, btype)
+                    for j, btype in enumerate(pattern)}
                    for pattern, groups in cfg.stages()],
     }
     if not cfg.tie_embeddings:
@@ -142,7 +158,9 @@ def _attn_cache_len(cfg, btype, seq_len):
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> Pytree:
     """Slot-batched decode cache mirroring the stage layout: per stage
-    and pattern position ``{"k", "v"}`` of ``[G, batch, C, KV, hd]``."""
+    and pattern position ``{"k", "v"}`` of ``[G, batch, C, KV, hd]``, or
+    for a recurrent block ``{"h": [G, batch, W] f32, "conv": [G, batch,
+    cw - 1, W]}``."""
     check_supported(cfg)
     dev = resolve_device(device)
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -150,6 +168,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     for pattern, groups in cfg.stages():
         st = {}
         for j, btype in enumerate(pattern):
+            if btype == BLOCK_RECURRENT:
+                st[f"pos{j}"] = rglru.init_cache(cfg, batch, groups=groups,
+                                                 dtype=dtype, device=dev)
+                continue
             C = _attn_cache_len(cfg, btype, seq_len)
             st[f"pos{j}"] = {
                 "k": torch.zeros(groups, batch, C, KV, hd, dtype=dtype,
@@ -168,6 +190,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
     page of unmapped table entries); local-attention blocks keep their
     dense ring ``{"k", "v"}`` of ``[G, batch, C, KV, hd]``."""
     check_supported(cfg)
+    if not supports_paged_kv(cfg):
+        raise ValueError("paged KV supports attention blocks only "
+                         "(see supports_paged_kv)")
     dev = resolve_device(device)
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     stages = []
@@ -184,6 +209,21 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
                              for n in names}
         stages.append(st)
     return {"stages": stages}
+
+
+def reset_recurrent_state(cache, slots):
+    """Zero the recurrent state (``h`` and ``conv``) of ``slots`` in
+    every recurrent block, in place on the device: a slot's next request
+    then starts from the state a fresh cache gives it.  Attention rows
+    need no reset (they are masked by position)."""
+    states = [a for st in cache["stages"] for blk in st.values()
+              if "h" in blk for a in blk.values()]
+    if states:
+        idx = torch.as_tensor(slots, dtype=torch.long,
+                              device=states[0].device)
+        for a in states:
+            a.index_fill_(1, idx, 0)
+    return cache
 
 
 def copy_cache_pages(cache, src, dst):
@@ -395,12 +435,44 @@ def _prefill_attend(cfg, btype, q, k, v, cache, positions, rows: PrefillRows):
                          ck.dtype)
 
 
+def _write_state(cache, new, active):
+    """Write a recurrent block's new state into ``cache`` in place, only
+    for slots with ``active[b]`` (None: all): inactive slots keep their
+    bits.  The conv state keeps the cache's dtype (JAX's decode replaces
+    the leaf with the compute dtype; the two agree when the dtypes do)."""
+    for name, v in new.items():
+        dst = cache[name]
+        v = v.to(dst.dtype)
+        if active is not None:
+            keep = ~active.view((-1,) + (1,) * (v.dim() - 1))
+            v = torch.where(keep, dst, v)
+        dst.copy_(v)
+
+
+def _recurrent_block_apply(cfg, params, x, *, mode, cache, active):
+    """The Griffin residual block: RG-LRU temporal mixing, then the MLP."""
+    if mode not in ("train", "decode"):
+        raise ValueError(f"{mode} does not support {BLOCK_RECURRENT} "
+                         f"blocks")
+    h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
+    y, new_cache = rglru.block_apply(params["rec"], h, mode=mode,
+                                     cache=cache)
+    if new_cache is not None:
+        _write_state(cache, new_cache, active)
+    x = x + y
+    h = layers.rms_norm(params["ln2"], x, cfg.norm_eps)
+    return x + layers.mlp_apply(params["mlp"], h, cfg.mlp_type)
+
+
 def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
                  pos=None, attn_impl="full", active=None, page_table=None):
-    """One attention block.  ``mode``: ``train`` (full sequence, no
-    cache), ``decode`` (one token, ``pos`` [B] write index; paged pools
-    go through ``page_table`` [B, NP] on the device) or ``prefill_slots``
-    (``pos`` = the chunk's ``PrefillRows``)."""
+    """One block.  ``mode``: ``train`` (full sequence, no cache),
+    ``decode`` (one token, ``pos`` [B] write index; paged pools go
+    through ``page_table`` [B, NP] on the device) or ``prefill_slots``
+    (``pos`` = the chunk's ``PrefillRows``; attention blocks only)."""
+    if btype == BLOCK_RECURRENT:
+        return _recurrent_block_apply(cfg, params, x, mode=mode,
+                                      cache=cache, active=active)
     window = cfg.window_size if btype == BLOCK_LOCAL_ATTN else 0
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     B, S, D = h.shape
@@ -676,6 +748,9 @@ def verify_into_slots(params, cfg: ModelConfig, cache, tokens, starts,
     PyTorch a [B, K, D] pass rounds differently from [B, 1, D] steps,
     so the one-pass verify is not ported (ROADMAP C) and a round costs
     K decode passes."""
+    if any(t == BLOCK_RECURRENT for t in cfg.layer_types()):
+        raise ValueError("verify does not support recurrent blocks: their "
+                         "state cannot roll back (see supports_spec_decode)")
     dev = tokens.device
     st = _host(starts).astype(np.int64)
     act = _host(active).astype(bool)

@@ -11,7 +11,11 @@ swapped out slot-wise while the rest keep decoding:
 - **chunked batched prefill**: a whole admitted group's prompts run
   through ``model.prefill_into_slots`` in prompt chunks (tail chunks
   bucketed to powers of two); ``prefill_chunk=0`` restores per-token
-  priming through the decode step.
+  priming through the decode step, which recurrent (RG-LRU) models
+  always use;
+- at admission a slot's recurrent state is zeroed on the device, so a
+  request in a reused slot decodes as in a fresh server (the JAX server
+  primes on the state the slot's last request left, ROADMAP C).
 
 Multi-tenant (BlockDelta) serving: requests may carry an ``adapter_id``
 resolved against an adapter registry.  One base model stays resident;
@@ -522,6 +526,11 @@ class DecodeServer:
                 self.metrics.histogram("sched/queue_wait_ms").observe(
                     (now - req.submit_ns) / 1e6)
         admit_t0 = time.monotonic_ns() if tr is not None else 0
+        # a reused slot's recurrent state is its last request's: start
+        # each admitted request from a fresh state, as a fresh server
+        # would (attention rows are masked by position and need no reset)
+        model_lib.reset_recurrent_state(self.cache_state,
+                                        [slot for slot, _ in admitted])
         firsts = (self._prime_chunked(admitted) if self._slot_prefill
                   else self._prime_tokenwise(admitted))
         if tr is not None:

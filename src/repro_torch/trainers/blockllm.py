@@ -369,12 +369,11 @@ def make_blockllm(cfg, *, adam=None, bcfg=None, loss_fn=None,
                   quantize_state=False, device=None, **_) -> BlockLLMCore:
     device = model_lib.resolve_device(device)
     if bcfg is None:
-        # quantized state on the card defaults to the fused dequant ->
-        # Adam -> requant kernel (the JAX package: "pallas" on a TPU); an
-        # explicit bcfg always takes precedence
-        fused = "off"
-        if quantize_state and device.type == "cuda":
-            fused = "kernel"
+        # on the card the step defaults to the fused masked-Adam kernels
+        # (f32 or Q8 moments; the JAX package fuses Q8 on a TPU and
+        # leaves the f32 update to XLA's fusion, which eager PyTorch
+        # lacks); an explicit bcfg always takes precedence
+        fused = "kernel" if device.type == "cuda" else "off"
         bcfg = BlockLLMConfig(selector=SelectorConfig(
             sparsity=sparsity, patience=patience, policy=policy,
             static_k_frac=k_frac, probe_rows_per_stack=probe_rows),

@@ -66,8 +66,8 @@ SELECTOR = dict(sparsity=0.9, policy="static", static_k_frac=0.34,
                 reselect_every=4, probe_rows_per_stack=1)
 
 
-def _setup():
-    jcfg = jreduce(jget_config("internlm2-1.8b"), 8).replace(dtype="float32")
+def _setup(arch="internlm2-1.8b", **kw):
+    jcfg = jreduce(jget_config(arch), 8).replace(dtype="float32", **kw)
     tcfg = tconfigs.ModelConfig(**dataclasses.asdict(jcfg))
     jparams = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = interop.tree_to_torch(jax.tree.map(np.asarray, jparams),
@@ -82,9 +82,9 @@ def _flat(tree, port):
                                       np.float32).ravel() for l in leaves])
 
 
-def run_trajectory(mode):
+def run_trajectory(mode, arch="internlm2-1.8b", **kw):
     """Step the JAX and port trainers side by side; assert per step."""
-    jcfg, tcfg, jparams, tparams = _setup()
+    jcfg, tcfg, jparams, tparams = _setup(arch, **kw)
     q8 = mode == "q8"
     jfused = {"off": "off", "plain": "interpret", "q8": "interpret"}[mode]
     tfused = {"off": "off", "plain": "plain", "q8": "plain"}[mode]
@@ -126,6 +126,13 @@ def run_trajectory(mode):
 
 def test_trajectory_unfused_matches_jax():
     run_trajectory("off")
+
+
+def test_trajectory_hybrid_matches_jax():
+    """The same trajectory on the hybrid RG-LRU family (reduced
+    ``recurrentgemma-2b`` with 5 layers: both stage shapes, the RG-LRU
+    scan forward and backward, tied embeddings)."""
+    run_trajectory("off", "recurrentgemma-2b", num_layers=5)
 
 
 # ------------------------------------------------------- units, selection

@@ -339,3 +339,98 @@ def test_cuda_paged_server_streams_equal_dense(cuda_device, speculate):
         assert (launched > 0) == (layout == "paged")
         outs[layout] = [r.out for r in reqs]
     assert outs["paged"] == outs["dense"]
+
+
+# ------------------------------------------------ the RG-LRU scan kernel
+
+
+def _scan_inputs(device, B, S, W, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    a = torch.rand(B, S, W, generator=g, device=device) * 0.199 + 0.8
+    b = torch.randn(B, S, W, generator=g, device=device) * 0.1
+    h0 = torch.randn(B, W, generator=g, device=device) * 0.1
+    return a, b, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(8, 256, 2560), (2, 96, 192),
+                                   (1, 33, 130)])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_rglru_scan_bitwise_equals_plain(cuda_device, B, S, W,
+                                              with_h0, reverse):
+    """The kernel rounds the product and the sum on their own (no FMA),
+    as its plain version: y and h_last bitwise, forward and reversed."""
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0 = _scan_inputs(cuda_device, B, S, W, 0)
+    h0 = h0 if with_h0 else None
+    before = ops.LAUNCHES["rglru_scan_bwd" if reverse else "rglru_scan"]
+    ky, kh = rs.rglru_scan_cuda(a, b, h0, reverse=reverse)
+    py, ph = rs.rglru_scan_plain(a, b, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan_bwd" if reverse else
+                        "rglru_scan"] == before + 1
+    assert torch.equal(_bits(ky), _bits(py))
+    assert torch.equal(_bits(kh), _bits(ph))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,W", [(2, 96, 192), (1, 33, 130)])
+def test_cuda_rglru_scan_op_grads_bitwise(cuda_device, B, S, W):
+    """``ops.rglru_scan`` with the kernel against the plain directions:
+    y, h_last, da, db, dh0 bitwise; one forward and one backward launch."""
+    ins = _scan_inputs(cuda_device, B, S, W, 1)
+    outs = {}
+    for mode in ("kernel", "plain"):
+        ts = [t.clone().requires_grad_() for t in ins]
+        ops.reset_launches()
+        y, h = ops.rglru_scan(*ts, mode=mode)
+        grads = torch.autograd.grad((y ** 2).sum() + (h ** 2).sum(), ts)
+        torch.cuda.synchronize()
+        outs[mode] = (y, h) + grads
+        n = 1 if mode == "kernel" else 0
+        assert ops.LAUNCHES["rglru_scan"] == ops.LAUNCHES[
+            "rglru_scan_bwd"] == n
+    for k, p in zip(outs["kernel"], outs["plain"]):
+        assert torch.equal(_bits(k.detach()), _bits(p.detach()))
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_scan_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import rglru_scan as rs
+    a, b, h0 = _scan_inputs(cuda_device, 2, 8, 32, 2)
+    with pytest.raises(ValueError, match="f32"):
+        rs.rglru_scan_cuda(a.bfloat16(), b.bfloat16(), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rglru_scan_cuda(a.transpose(1, 2), b.transpose(1, 2), None)
+    with pytest.raises(ValueError, match="h0"):
+        rs.rglru_scan_cuda(a, b, h0[:, :16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_g10_ring(cuda_device, qdt):
+    """recurrentgemma-2b's local layers: MQA with 10 query heads, head_dim
+    256, a ring cache over the 2048-token window, before and after the
+    ring wraps (tolerances of the other decode-attention cases)."""
+    g = torch.Generator(cuda_device).manual_seed(3)
+    B, C, KV, G, hd = 8, 2048, 1, 10, 256
+    q = torch.randn(B, 1, KV * G, hd, generator=g, device=cuda_device).to(qdt)
+    k = torch.randn(B, C, KV, hd, generator=g, device=cuda_device).bfloat16()
+    v = torch.randn(B, C, KV, hd, generator=g, device=cuda_device).bfloat16()
+    pos = torch.tensor([0, 100, 2047, 2048, 2500, 3000, 4095, 9000],
+                       dtype=torch.int32, device=cuda_device)
+    kw = dict(window=2048, ring=True)
+    o = ops.decode_attention(q, k, v, pos, **kw)
+    r = ops.decode_attention(q, k, v, pos, mode="plain", **kw)
+    if qdt == torch.float32:
+        torch.testing.assert_close(o, r, **F32_TOL)
+    else:
+        torch.testing.assert_close(o.float(), r.float(), rtol=0,
+                                   atol=BF16_ATOL)
+    with pytest.raises(ValueError, match="group"):   # dense kernel only
+        ops.paged_decode_attention(
+            q, k[:, 0], v[:, 0], k.view(-1, 16, KV, hd)[:32],
+            v.view(-1, 16, KV, hd)[:32], pos.clamp(max=15),
+            torch.ones(B, 1, dtype=torch.int32, device=cuda_device),
+            torch.ones(B, dtype=torch.bool, device=cuda_device))
