@@ -101,6 +101,26 @@ What it does, failing (non-zero exit, no result line) on any error:
    (per-token priming, 2 slots, so slots are reused) with the merged
    weights' streams, the reused slot's stream equal to a fresh server's,
    one decode-attention launch per local layer per decode pass;
+18. the flash-attention kernel (the port's slice 5) against its plain
+   version over a sweep (``tests/test_kernels.py``'s shapes, ragged S,
+   Sq != Sk non-causal, hd 32 / 64 / 128 / 256, f32 within 2e-5 and bf16
+   within one bf16 ulp of the plain output plus 2e-5), then at two main
+   shapes, ``internlm2-1.8b`` attention (B 2, S 4096, H 16, KV 8, hd 128,
+   causal) and ``recurrentgemma-2b``'s local attention (H 10, KV 1, hd
+   256, window 2048), its time beside the bound, the plain version and
+   SDPA;
+19. ``ops.flash_attention`` through autograd at the ``internlm2-1.8b``
+   shape under the kernel profiler (launch counts reset just before and
+   read just after: one launch per forward call; the record's bytes and
+   the ``kernels/flash_attention_calls`` counter), its q/k/v gradients
+   (the chunked recompute) bitwise those of ``mode="plain"``, and a small
+   f32 case within atol 1e-4 of autograd through the plain attention;
+20. long-context BlockLLM training of ``internlm2-1.8b`` at full width and
+   depth through the trainer API with ``attn_impl="chunked"`` (batch 2 x
+   4096, 4 steps, remat on): finite losses, the first within 1.0 of
+   ln(vocab), step times, peak memory, a ``torch.profiler`` window with
+   the chunked attention's share, and at 2 layers in f32 the chunked
+   and full attention's losses within 1e-5 relative;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -123,6 +143,7 @@ OUT = ROOT / "chiprun_out"
 SCRATCH = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
+BF16_FLOPS = 989e12                # bf16 dense tensor cores
 ARCH = "internlm2-1.8b"
 
 # tolerances (reasons beside each)
@@ -144,6 +165,30 @@ PAGED_ARGV = ["--arch", ARCH, "--reduce", "0", "--attn-impl", "kernel",
               "--prefill-chunk", "32", "--steps-per-turn", "2"]
 TRAIN_ARGV = ["--arch", ARCH, "--reduce", "0", "--optimizer", "blockllm+q8",
               "--batch", "8", "--seq", "256", "--steps", "8"]
+# flash attention (slice 5).  f32 output: the JAX sweep's bound (sums in
+# another order); bf16 output: one bf16 ulp of the plain output plus this
+# atol (each rounds its own f32 result once; near zero an ulp is below it)
+FLASH_F32_ATOL = 2e-5
+# (B, Sq, Sk, H, KV, hd, causal, window): tests/test_kernels.py's sweep,
+# ragged S (tiles of 64 rows, 32 at hd 256, and 32 keys), a q-tile smaller
+# than a tile, Sq != Sk non-causal (windowed rows past Sk see no key), hd
+# 32 / 64 / 128 / 256
+FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, 0),
+               (1, 512, 512, 4, 1, 64, True, 64),
+               (2, 128, 128, 2, 2, 32, False, 0),
+               (1, 384, 384, 4, 4, 128, True, 0),
+               (1, 256, 256, 8, 2, 64, True, 128),
+               (1, 1000, 1000, 4, 2, 128, True, 0),
+               (1, 1000, 1000, 2, 1, 256, True, 300),
+               (1, 100, 100, 2, 1, 256, True, 0),
+               (2, 77, 77, 4, 1, 32, True, 0),
+               (1, 200, 333, 4, 2, 32, False, 0),
+               (1, 333, 200, 4, 1, 64, False, 64),
+               (1, 384, 384, 10, 1, 256, True, 128))
+# the main shapes: (B, S, H, KV, hd, window), causal, bf16
+FLASH_MAIN = {"internlm2-1.8b": (2, 4096, 16, 8, 128, 0),
+              "recurrentgemma-2b local": (2, 4096, 10, 1, 256, 2048)}
+LONG_BATCH, LONG_SEQ = 2, 4096     # phase 20
 
 
 def smi() -> str:
@@ -1259,7 +1304,8 @@ def train_main_path(torch, np, ops):
     return launches, peak, report
 
 
-def profile_train(torch, core, state, pipe, first, arch=ARCH):
+def profile_train(torch, core, state, pipe, first, arch=ARCH,
+                  label="batch 8 x 256"):
     """2 steady BlockLLM steps under torch.profiler: wall vs device busy,
     the masked-Adam kernels' (and RG-LRU scan kernel's) share, the top
     kernels."""
@@ -1279,7 +1325,7 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH):
     adam = sum(e.self_device_time_total for e in rows
                if "masked_adam" in e.key) / 1e3 / n
     print(f"train step profile ({arch}, blockllm f32 moments, fused "
-          f"kernel, batch 8 x 256, {n} steady steps): wall {wall_ms:.1f} "
+          f"kernel, {label}, {n} steady steps): wall {wall_ms:.1f} "
           f"ms/step, device busy {busy:.1f} ms/step, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.1%}, masked_adam "
           f"{adam:.3f} ms/step ({adam / max(busy, 1e-9):.1%} of busy)")
@@ -1309,7 +1355,8 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
               f"{e.count // n:5d} calls/step  {e.key[:70]}")
-    (OUT / f"train_profile_{arch}.txt").write_text(
+    (OUT / f"train_profile_{arch}_{label.split(',')[0].replace(' ', '')}"
+           f".txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=40))
     return state, dict(wall_ms=wall_ms, busy_ms=busy, **groups)
@@ -1828,6 +1875,300 @@ def rg_train(torch, np, ops):
     return launches, prof
 
 
+# --------------------------------------------------------------------- #
+# phases 18-20: the flash-attention op and long-context training (slice 5)
+# --------------------------------------------------------------------- #
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values at |x| (8 significant bits), in f64."""
+    e = torch.floor(torch.log2(x.double().abs().clamp(min=2.0 ** -133)))
+    return torch.exp2(e - 7)
+
+
+def flash_inputs(torch, B, Sq, Sk, H, KV, hd, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
+            for S, n in ((Sq, H), (Sk, KV), (Sk, KV))]
+
+
+def flash_parity(torch, fa, q, k, v, causal, window):
+    """Kernel vs plain: (max |diff|, ok).  f32 within FLASH_F32_ATOL; bf16
+    within one bf16 ulp of the plain output plus FLASH_F32_ATOL (each rounds
+    its own f32 result once)."""
+    o = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    r = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = (o.double() - r.double()).abs()
+    tol = FLASH_F32_ATOL + (bf16_ulp(torch, r) if q.dtype == torch.bfloat16
+                            else 0.0)
+    ok = bool((err <= tol).all()) and bool(torch.isfinite(o).all())
+    return err.max().item(), ok
+
+
+def check_flash_attention(torch, fa, results):
+    """Phase 18: the flash kernel against its plain version over the
+    sweep, then at the two main shapes (bf16) with its time beside the
+    bound, the plain version and SDPA."""
+    worst = 0.0
+    for B, Sq, Sk, H, KV, hd, causal, window in FLASH_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, B, Sq, Sk, H, KV, hd, dt, Sq + hd)
+            err, ok = flash_parity(torch, fa, q, k, v, causal, window)
+            worst = max(worst, err)
+            print(f"flash_attention [B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} "
+                  f"{'causal' if causal else 'full'} window {window}] "
+                  f"{str(dt)[6:]}: max|kernel-plain| {err:.3g} "
+                  f"({'atol' if dt == torch.float32 else '1 bf16 ulp +'} "
+                  f"{FLASH_F32_ATOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_attention disagrees with its "
+                                     "plain version")
+    out = {}
+    for tag, (B, S, H, KV, hd, window) in FLASH_MAIN.items():
+        copies = [flash_inputs(torch, B, S, S, H, KV, hd, torch.bfloat16,
+                               100 + i) for i in range(2)]
+        err, ok = flash_parity(torch, fa, *copies[0], True, window)
+        worst = max(worst, err)
+        print(f"flash_attention [{tag}: B{B} S{S} H{H} KV{KV} hd{hd} causal "
+              f"window {window}] bfloat16: max|kernel-plain| {err:.3g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at the {tag} shape")
+        if window:
+            i = torch.arange(S, device="cuda")
+            mask = (i[:, None] >= i[None]) & (i[:, None] - i[None] < window)
+            sdpa_kw = dict(attn_mask=mask)
+        else:
+            sdpa_kw = dict(is_causal=True)
+        tr = [[t.transpose(1, 2) for t in c] for c in copies]
+        ms = cuda_time_ms(lambda j: fa.flash_attention_cuda(
+            *copies[j % 2], causal=True, window=window), 10)
+        plain_ms = cuda_time_ms(lambda j: fa.flash_attention_plain(
+            *copies[j % 2], causal=True, window=window), 3)
+        lib_ms = cuda_time_ms(
+            lambda j: torch.nn.functional.scaled_dot_product_attention(
+                *tr[j % 2], enable_gqa=True, **sdpa_kw), 10)
+        nbytes = fa.flash_bytes(*copies[0])
+        flops = fa.flash_flops(B, S, S, H, hd, causal=True, window=window)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else
+                        "operations")
+        print(f"flash_attention time [{tag}] bf16: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms "
+              f"({'boolean mask' if window else 'is_causal'}); bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({out[tag]['bound_by']}: "
+              f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s, {nbytes / 1e6:.1f} "
+              f"MB at 3.35 TB/s); {ms / lib_ms:.1f}x sdpa, "
+              f"{ms / max(t_bytes, t_ops):.1f}x the bound")
+        del copies, tr
+        torch.cuda.empty_cache()
+    main, rg = out["internlm2-1.8b"], out["recurrentgemma-2b local"]
+    results["flash_attention"] = dict(
+        max_abs_err=worst, **main,
+        **{f"rg_{k}": v for k, v in rg.items()})
+
+
+def bits(torch, t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def flash_op(torch, fa, ops):
+    """Phase 19: the op through autograd at the internlm2-1.8b shape under
+    the kernel profiler; its gradients bitwise mode="plain"'s; a small f32
+    case against autograd through the plain attention.  Returns the
+    launch counts of the profiled run."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    B, S, H, KV, hd, _ = FLASH_MAIN["internlm2-1.8b"]
+    q, k, v = flash_inputs(torch, B, S, S, H, KV, hd, torch.bfloat16, 19)
+    w = torch.randn(B, S, H, hd, generator=torch.Generator(
+        "cuda").manual_seed(20), device="cuda").bfloat16()   # d(loss)/do
+    n = 3
+    tracer, metrics = Tracer(), MetricsRegistry()
+    ops.reset_launches()
+    prof = ops.enable_kernel_profiling(tracer=tracer, metrics=metrics)
+    bwd_ms = []
+    try:
+        for _ in range(n):
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ops.flash_attention(*ins, True, 0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            grads = torch.autograd.grad(o, ins, w)
+            end.record()
+            end.synchronize()
+            bwd_ms.append(start.elapsed_time(end))
+    finally:
+        ops.disable_kernel_profiling()
+    launches = dict(ops.LAUNCHES)
+    recs = prof.records
+    spans = tracer.spans("flash_attention")
+    calls = metrics.counter("kernels/flash_attention_calls").value
+    rec_ok = (len(recs) == n and len(spans) == n and calls == n
+              and all(r["op"] == "flash_attention" and r["bytes"] ==
+                      2 * q.nbytes + k.nbytes + v.nbytes for r in recs)
+              and all(sp.lane == "kernels" for sp in spans))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_p = ops.flash_attention(*ins, True, 0, mode="plain")
+    plain = torch.autograd.grad(o_p, ins, w)
+    torch.cuda.synchronize()
+    same = all(torch.equal(bits(torch, a), bits(torch, b))
+               for a, b in zip(grads, plain))
+    print(f"flash_attention op [B{B} S{S} H{H} KV{KV} hd{hd} bf16 causal] "
+          f"x{n} under the kernel profiler: forward "
+          f"{[round(r['ms'], 3) for r in recs]} ms, backward (chunked "
+          f"recompute) {[round(x, 2) for x in bwd_ms]} ms; records {len(recs)}"
+          f", spans {len(spans)}, kernels/flash_attention_calls {calls}, "
+          f"bytes {recs[0]['bytes'] if recs else None} "
+          f"{'ok' if rec_ok else 'FAIL'}; launches {launches}; dq, dk, dv "
+          f"bitwise mode='plain' {'ok' if same else 'FAIL'}")
+    if not rec_ok:
+        raise AssertionError("the kernel profiler's flash_attention record "
+                             "or counter is wrong")
+    if launches["flash_attention"] != n:
+        raise AssertionError("flash_attention launches differ from the "
+                             "number of forward calls")
+    if not same:
+        raise AssertionError("the op's gradients differ from mode='plain'")
+    q, k, v = flash_inputs(torch, 1, 128, 128, 4, 2, 32, torch.float32, 21)
+    gk = torch.autograd.grad((ops.flash_attention(
+        *[t.requires_grad_() for t in (q, k, v)]) ** 2).sum(), (q, k, v))
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    gr = torch.autograd.grad((fa.flash_attention_plain(*ins) ** 2).sum(), ins)
+    err = max((a - b).abs().max().item() for a, b in zip(gk, gr))
+    print(f"flash_attention op gradients [1, 128, 4 / 2, 32] f32 vs autograd "
+          f"through the plain attention: max|diff| {err:.3g} (atol 1e-4) "
+          f"{'ok' if err <= 1e-4 else 'FAIL'}")
+    if not err <= 1e-4:
+        raise AssertionError("the op's gradients disagree with the plain "
+                             "attention's")
+    return launches, dict(fwd_ms=[r["ms"] for r in recs], bwd_ms=bwd_ms)
+
+
+def long_context_attention_ms(torch, cfg, B, S):
+    """Device ms (``torch.profiler``'s kernel time, as the step's busy
+    time) of one attention block's chunked attention as a remat training
+    step runs it: the forward, then under the block's recompute the
+    forward again and, per q-chunk, its recompute and backward."""
+    from torch.autograd import DeviceType
+    from repro_torch.models import layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = flash_inputs(torch, B, S, S, H, KV, hd, torch.bfloat16, 22)
+    do = torch.randn_like(q)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+
+    def once(_):
+        with torch.no_grad():
+            layers.attention_chunked(q, k, v, pos, pos)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(layers.attention_chunked(*ins, pos, pos), ins,
+                            do)
+    once(0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        once(0)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+
+
+def long_context_train(torch, np, ops):
+    """Phase 20: BlockLLM training of internlm2-1.8b at full width and
+    depth over 2 x 4096-token batches with ``attn_impl="chunked"``, then a
+    reduced-depth f32 check of chunked against full attention."""
+    from repro_torch import trainers
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.blockllm import BlockLLMConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import Adam
+    cfg = get_config(ARCH)
+    B, S = LONG_BATCH, LONG_SEQ
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=0))
+    core = trainers.make("blockllm", cfg, adam=Adam(lr=1e-3),
+                         bcfg=BlockLLMConfig(fused_update="kernel"),
+                         attn_impl="chunked", device="cuda")
+    state = core.init(torch.Generator("cuda").manual_seed(0))
+    chunked, calls = layers.attention_chunked, []
+    layers.attention_chunked = lambda *a, **kw: (calls.append(1)
+                                                 or chunked(*a, **kw))
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    try:
+        for s in range(4):
+            t0 = time.monotonic()
+            state, m = core.step(state, pipe.batch(s))   # ends in a host read
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            losses.append(m["loss"])
+    finally:
+        layers.attention_chunked = chunked
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"long-context training ({ARCH}, blockllm f32 moments, fused "
+          f"kernel, attn_impl='chunked', remat {cfg.remat}, batch {B} x "
+          f"{S}): losses {[round(x, 4) for x in losses]} (first - ln V "
+          f"{losses[0] - np.log(cfg.vocab_size):+.3f}); step ms "
+          f"{[round(x, 1) for x in step_ms]}; attention_chunked calls "
+          f"{len(calls)} ({cfg.num_layers} layers x 4 steps x forward and "
+          f"remat recompute); launches {launches}; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    if not (np.isfinite(losses).all() and len(losses) == 4):
+        raise AssertionError("long-context training: non-finite loss")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError("long-context training: first loss not near "
+                             "ln(vocab)")
+    if not calls or launches["masked_adam"] == 0:
+        raise AssertionError("long-context training did not run "
+                             "attention_chunked or masked_adam")
+    state, prof = profile_train(torch, core, state, pipe, 4,
+                                label=f"batch {B} x {S}, chunked attention")
+    del state, core
+    torch.cuda.empty_cache()
+    attn = long_context_attention_ms(torch, cfg, B, S) * cfg.num_layers
+    print(f"long-context step: chunked attention {attn:.1f} ms/step "
+          f"(one block's forward + remat recompute + backward, profiled "
+          f"alone, x {cfg.num_layers}) = {attn / max(prof['busy_ms'], 1e-9):.1%} of "
+          f"device "
+          f"busy {prof['busy_ms']:.1f} ms/step")
+    torch.cuda.empty_cache()
+    small = cfg.replace(num_layers=2, dtype="float32")
+    params = model_lib.init_params(small, generator=torch.Generator(
+        "cuda").manual_seed(5), device="cuda")
+    batch = {k: t.to("cuda") for k, t in pipe.batch(9).items()}
+    with torch.no_grad():
+        lc = model_lib.loss_fn(params, small, batch,
+                               attn_impl="chunked")[0].item()
+        lf = model_lib.loss_fn(params, small, batch,
+                               attn_impl="full")[0].item()
+        logit_diff = (model_lib.forward(params, small, batch["tokens"],
+                                        attn_impl="chunked")
+                      - model_lib.forward(params, small, batch["tokens"],
+                                          attn_impl="full")).abs().max()
+    rel = abs(lc - lf) / abs(lf)
+    print(f"chunked vs full attention ({ARCH} at 2 layers, f32, batch {B} x "
+          f"{S}): losses {lc:.7f} / {lf:.7f}, rel diff {rel:.2e} (1e-5) "
+          f"{'ok' if rel <= 1e-5 else 'FAIL'}; largest logit difference "
+          f"{logit_diff.item():.3g}")
+    if not rel <= 1e-5:
+        raise AssertionError("chunked and full attention disagree")
+    del params
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, peak=peak, attn_ms=attn,
+                **prof)
+
+
 def main() -> int:
     try:
         import torch
@@ -1869,6 +2210,10 @@ def main() -> int:
                  "paged_decode_attention": ["Li4ELi2ELb1E"],
                  "scatter_swap": ["scatter_swap"],
                  "rglru_scan": ["rglru_scan"],
+                 # bf16 at hd 128 (64-row q-tiles) and hd 256 (32 rows)
+                 "flash_attention": [
+                     "flash_attention_kernelI13__nv_bfloat16Li128ELi64E",
+                     "flash_attention_kernelI13__nv_bfloat16Li256ELi32E"],
                  # f32 p, stored mask: the main path's instantiations
                  "masked_adam": ["masked_adam_kernelIfLb0ELb1E",
                                  "masked_adam_q8_kernelIfLb0ELb1E"]}[name]
@@ -1879,7 +2224,8 @@ def main() -> int:
                       f"{info['compiled']}, max registers over all entries "
                       f"{most}")
             for entry, line in rows:
-                at = entry.find("decode_attention_kernel")
+                at = max(entry.find("decode_attention_kernel"),
+                         entry.find("flash_attention_kernel"))
                 short = entry[entry.find(name) if at < 0 else at:][:60]
                 print(f"    {short}: "
                       f"{line.replace('ptxas info    : ', '')}")
@@ -1971,6 +2317,18 @@ def main() -> int:
     # delta holds whole leaves, swapped in without the swap kernel
     checkpoint_export_serve(torch, np, ops, arch=RG_ARCH, layers=5, slots=2)
 
+    # phase 18: the flash-attention kernel against its plain version over
+    # the sweep, and its times at the two main shapes
+    from repro_torch.kernels import flash_attention as fa
+    check_flash_attention(torch, fa, results)
+
+    # phase 19: the op through autograd (kernel forward, chunked backward)
+    # under the kernel profiler; its launches are the path's count
+    fa_launches, fa_times = flash_op(torch, fa, ops)
+
+    # phase 20: long-context BlockLLM training through the trainer API
+    long_ctx = long_context_train(torch, np, ops)
+
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path
@@ -1979,7 +2337,8 @@ def main() -> int:
                 "masked_adam_q8": t_launches["masked_adam_q8"],
                 "masked_adam": f32_launches["masked_adam"],
                 "rglru_scan": (rg_launches["rglru_scan"]
-                               + rg_launches["rglru_scan_bwd"])}
+                               + rg_launches["rglru_scan_bwd"]),
+                "flash_attention": fa_launches["flash_attention"]}
     path_of = {"decode_attention": "serving main path",
                "scatter_swap": "serving main path",
                "paged_decode_attention": "paged serving main path",
@@ -1987,24 +2346,29 @@ def main() -> int:
                "masked_adam": "blockllm f32 run (fused_update='kernel')",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
                              f"{rg_launches['rglru_scan']} + backward "
-                             f"{rg_launches['rglru_scan_bwd']})"}
+                             f"{rg_launches['rglru_scan_bwd']})",
+               "flash_attention": "flash_attention op (forward kernel, "
+                                  "chunked backward)"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"decode_attention": csrc + "decode_attention.cu",
                "scatter_swap": csrc + "scatter_swap.cu",
                "paged_decode_attention": csrc + "paged_decode_attention.cu",
                "masked_adam": csrc + "masked_adam.cu",
                "masked_adam_q8": csrc + "masked_adam.cu",
-               "rglru_scan": csrc + "rglru_scan.cu"}
+               "rglru_scan": csrc + "rglru_scan.cu",
+               "flash_attention": csrc + "flash_attention.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:186",
                 "scatter_swap": "src/repro/kernels/scatter_apply.py:81",
                 "paged_decode_attention":
                     "src/repro/kernels/decode_attention.py:352",
                 "masked_adam": "src/repro/kernels/masked_adam.py:152",
                 "masked_adam_q8": "src/repro/kernels/masked_adam.py:117",
-                "rglru_scan": "src/repro/kernels/rglru_scan.py:67"}
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:67",
+                "flash_attention": "src/repro/kernels/flash_attention.py:101"}
     kernels = []
     for name in ("decode_attention", "scatter_swap", "paged_decode_attention",
-                 "masked_adam", "masked_adam_q8", "rglru_scan"):
+                 "masked_adam", "masked_adam_q8", "rglru_scan",
+                 "flash_attention"):
         r = results[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],

@@ -30,14 +30,16 @@ SOURCES = {"decode_attention": "decode_attention.cu",
            "paged_decode_attention": "paged_decode_attention.cu",
            "scatter_swap": "scatter_swap.cu",
            "masked_adam": "masked_adam.cu",
-           "rglru_scan": "rglru_scan.cu"}
+           "rglru_scan": "rglru_scan.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # one counter per kernel; masked_adam.cu holds two, and the RG-LRU scan
 # counts its forward and its reversed (backward) launches apart
 KERNELS = ("decode_attention", "paged_decode_attention", "scatter_swap",
-           "masked_adam", "masked_adam_q8", "rglru_scan", "rglru_scan_bwd")
+           "masked_adam", "masked_adam_q8", "rglru_scan", "rglru_scan_bwd",
+           "flash_attention")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # per kernel: seconds, whether nvcc ran, and nvcc's output (-Xptxas -v)
 BUILD_INFO: Dict[str, dict] = {}
@@ -82,6 +84,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         fns = [(lib.scatter_swap_launch, [p, p, p, p, i, n, p])]
     elif name == "rglru_scan":
         fns = [(lib.rglru_scan_launch, [p] * 5 + [i] * 4 + [p])]
+    elif name == "flash_attention":
+        fns = [(lib.flash_attention_launch, [p] * 4 + [i] * 9 + [f, p])]
     else:
         fns = [(lib.masked_adam_launch, [p] * 5 + [n, i, i] + [f] * 8
                 + [i, p]),

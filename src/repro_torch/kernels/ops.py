@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.kernels.ops`` for the ported kernels: decode
 attention (dense and the fused paged write+attend), the row
-scatter-swap, masked Adam (f32 and Q8 moments) and the RG-LRU scan
-(a ``torch.autograd.Function``: the kernel forward and backward).
+scatter-swap, masked Adam (f32 and Q8 moments), the RG-LRU scan (a
+``torch.autograd.Function``: the kernel forward and backward) and flash
+attention (a ``torch.autograd.Function``: the kernel forward, the
+backward recomputed through ``layers.attention_chunked``).
 Every op takes ``mode``:
 
 - ``auto``: the Hopper kernel for a CUDA tensor, the plain PyTorch
@@ -30,11 +32,13 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import _flatten_with_names
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import masked_adam as ma
 from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import scatter_apply as sa
 from repro_torch.kernels.build import (LAUNCHES, builds,  # noqa: F401
                                        reset_launches)
+from repro_torch.models import layers
 
 MODES = ("auto", "kernel", "plain")
 
@@ -328,3 +332,56 @@ def rglru_scan(a, b, h0, *, mode: str = "auto"):
     nb = 2 * a.nbytes + b.nbytes
     return _profiled_call("rglru_scan", _RGLRUScan.apply,
                           (a, b, h0, kernel), {}, nb, a.device)
+
+
+# --------------------------------------------------------------------- #
+# flash attention (forward kernel, backward through attention_chunked)
+# --------------------------------------------------------------------- #
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward (``kernel=True``) or its plain version; the
+    backward is the VJP of ``layers.attention_chunked`` recomputed from
+    the saved q, k and v with positions ``arange(Sq)``, as
+    ``repro.kernels.ops._fa_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kernel):
+        fn = fa.flash_attention_cuda if kernel else fa.flash_attention_plain
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return fn(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        B, Sq = q.shape[:2]
+        if k.shape[1] != Sq:
+            raise ValueError(f"flash_attention's backward takes Sq == Sk "
+                             f"(one position vector); got Sq {Sq}, Sk "
+                             f"{k.shape[1]}")
+        pos = torch.arange(Sq, dtype=torch.int32,
+                           device=q.device)[None].expand(B, Sq)
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = layers.attention_chunked(*ins, pos, pos, causal=ctx.causal,
+                                         window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(o, ins, do)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal=True, window=0, *, mode: str = "auto"):
+    """Flash attention, differentiable: q [B, Sq, H, hd], k/v [B, Sk, KV,
+    hd] -> o [B, Sq, H, hd] in q's dtype.  The forward is the kernel
+    (``kernels/flash_attention.py``) or its plain version; the backward
+    recomputes through ``attention_chunked``, whose q-chunk
+    ``min(1024, Sq)`` must divide Sq, with Sq == Sk."""
+    kernel = route(mode, q) == "kernel"
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _PROFILER is None:
+        return _FlashAttention.apply(q, k, v, causal, window, kernel)
+    # bytes touched: q, k, v read once, o (q-shaped) written
+    nb = fa.flash_bytes(q, k, v)
+    return _profiled_call("flash_attention", _FlashAttention.apply,
+                          (q, k, v, causal, window, kernel), {}, nb,
+                          q.device)

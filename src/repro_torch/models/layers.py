@@ -78,6 +78,72 @@ def attention_full(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def attention_chunked(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                      q_chunk=1024, kv_chunk=1024, softcap=0.0):
+    """Blockwise online-softmax attention (``repro.models.layers.
+    attention_chunked``): equal to ``attention_full`` up to the order of
+    the sums, with live memory O(q_chunk * kv_chunk) per head.
+
+    A static loop over q-chunks; q-chunk ``i`` visits only the kv-chunks
+    in ``[lo, hi)`` (``hi`` the causal limit, ``lo`` the window's).  Each
+    q-chunk keeps (m, l, acc) in f32 with the ``-1e30`` fully-masked-row
+    guard; the scores are cast to f32 after the product and the
+    probabilities to q's dtype before P·V, so bf16 rounds where JAX
+    rounds.  With gradients on, each q-chunk runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): the backward
+    recomputes the block probabilities instead of saving [B, H, qc, kc]
+    per block pair."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    n_rep = H // KV
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Sk)
+    assert Sq % q_chunk == 0 and Sk % kv_chunk == 0
+    nq, nk = Sq // q_chunk, Sk // kv_chunk
+    scale = 1.0 / math.sqrt(hd)
+
+    def q_block(qi, qp, ks, vs, kps):
+        # qi [B, qc, H, hd], qp [B, qc]; ks/vs [B, n * kc, KV, hd]
+        m = torch.full((B, H, q_chunk), float("-inf"), dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32,
+                          device=q.device)
+        for j in range(0, ks.shape[1], kv_chunk):
+            kif = _repeat_kv(ks[:, j:j + kv_chunk], n_rep)
+            vif = _repeat_kv(vs[:, j:j + kv_chunk], n_rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", qi, kif).float() * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            s = s + _mask_bias(qp, kps[:, j:j + kv_chunk], causal=causal,
+                               window=window)[:, None]
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.clamp(m_new, min=NEG_INF)   # fully-masked rows
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(torch.clamp(m, min=NEG_INF) - m_safe)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(qi.dtype), vif).float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.transpose(1, 2).to(q.dtype)            # [B, qc, H, hd]
+
+    outs = []
+    for i in range(nq):
+        lo, hi = 0, nk
+        if causal:
+            hi = min(nk, ((i + 1) * q_chunk + kv_chunk - 1) // kv_chunk)
+        if window:
+            lo = max(0, (i * q_chunk - window) // kv_chunk)
+        qs = slice(i * q_chunk, (i + 1) * q_chunk)
+        ksl = slice(lo * kv_chunk, hi * kv_chunk)
+        args = (q[:, qs], q_pos[:, qs], k[:, ksl], v[:, ksl], k_pos[:, ksl])
+        outs.append(torch.utils.checkpoint.checkpoint(
+            q_block, *args, use_reentrant=False)
+            if torch.is_grad_enabled() else q_block(*args))
+    return torch.cat(outs, dim=1)                         # [B, Sq, H, hd]
+
+
 def decode_valid(pos_b, S, *, window=0, ring=False):
     """[B, S] bool: which cache rows a one-token query at ``pos_b`` sees."""
     idx = torch.arange(S, device=pos_b.device)[None, :]

@@ -491,8 +491,12 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     elif mode == "prefill_slots":
         o = _prefill_attend(cfg, btype, q, k, v, cache, positions, pos)
     elif mode == "train":
-        o = layers.attention_full(q, k, v, positions, positions, causal=True,
-                                  window=window, softcap=cfg.attn_softcap)
+        # JAX's branch: chunked attention only past 2048 tokens
+        attend = (layers.attention_chunked
+                  if attn_impl == "chunked" and S > 2048
+                  else layers.attention_full)
+        o = attend(q, k, v, positions, positions, causal=True,
+                   window=window, softcap=cfg.attn_softcap)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + o.reshape(B, S, H * hd) @ params["attn"]["wo"].to(x.dtype)
@@ -587,23 +591,32 @@ def _unembed(params, cfg, x):
 # ---------------------------------------------------------------------------
 
 
-def _hidden(params, cfg, tokens, *, overlay=None):
+TRAIN_ATTN_IMPLS = ("full", "chunked")
+
+
+def _hidden(params, cfg, tokens, *, overlay=None, attn_impl="full"):
     """Final-norm hidden states [B, S, D] of a full-sequence pass."""
     check_supported(cfg)
+    if attn_impl not in TRAIN_ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: full-sequence attention "
+                         f"is one of {TRAIN_ATTN_IMPLS}")
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
     x = _stack_apply(cfg, params["stages"], x, positions=positions,
-                     mode="train", overlay=overlay)
+                     mode="train", overlay=overlay, attn_impl=attn_impl)
     return layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, overlay=None):
-    """Full-sequence teacher-forced logits [B, S, vocab] (``full``
-    attention)."""
+def forward(params, cfg: ModelConfig, tokens, *, overlay=None,
+            attn_impl="full"):
+    """Full-sequence teacher-forced logits [B, S, vocab].  ``attn_impl``
+    ``chunked`` runs ``layers.attention_chunked`` past 2048 tokens (as
+    JAX's ``forward``), ``full`` always ``attention_full``."""
     return _unembed(params, cfg, _hidden(params, cfg, tokens,
-                                         overlay=overlay))
+                                         overlay=overlay,
+                                         attn_impl=attn_impl))
 
 
 def _labels_mask(batch):
@@ -655,21 +668,15 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="full",
     """Next-token cross entropy.  Returns ``(loss, metrics)``.
 
     ``loss_chunk``: None => auto (chunked when S * V > 2**27, as JAX);
-    0 => direct.  Attention is ``full`` (JAX's ``chunked`` attention only
-    differs for S > 2048, which the port does not train yet)."""
+    0 => direct.  ``attn_impl``: ``full`` or ``chunked`` (blockwise
+    attention past 2048 tokens), as ``forward``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    if attn_impl not in ("full", "chunked"):
-        raise ValueError(f"attn_impl {attn_impl!r}: training attention is "
-                         f"'full'")
-    if attn_impl == "chunked" and S > 2048:
-        raise NotImplementedError(
-            "attention_chunked (S > 2048) is not ported yet (ROADMAP "
-            "queue A)")
     labels, mask = _labels_mask(batch)
     if loss_chunk is None:
         loss_chunk = 512 if S * cfg.vocab_size > (1 << 27) else 0
-    hidden = _hidden(params, cfg, tokens, overlay=overlay)
+    hidden = _hidden(params, cfg, tokens, overlay=overlay,
+                     attn_impl=attn_impl)
     if loss_chunk:
         nll_sum = _chunked_xent(params, cfg, hidden, labels, mask,
                                 loss_chunk)

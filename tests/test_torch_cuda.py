@@ -12,7 +12,10 @@ outputs atol 2e-2 (one bf16 rounding step below 4); the swap bitwise.
 Masked Adam: the kernel and its plain version do the same IEEE
 operations in the same order (no FMA), so f32 results are held within 2
 ulp, bf16 parameters within one bf16 ulp, and the Q8 codes and scales
-bitwise.
+bitwise.  Flash attention: f32 outputs atol 2e-5 (the JAX sweep's bound),
+bf16 outputs within one bf16 ulp of the plain output plus 2e-5 (each
+rounds its own f32 result once); the op's gradients bitwise
+``mode="plain"``'s (the same chunked recompute).
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import masked_adam as ma
 from repro_torch.kernels import ops
 from repro_torch.models import model as tmodel
@@ -434,3 +438,78 @@ def test_cuda_decode_attention_g10_ring(cuda_device, qdt):
             v.view(-1, 16, KV, hd)[:32], pos.clamp(max=15),
             torch.ones(B, 1, dtype=torch.int32, device=cuda_device),
             torch.ones(B, dtype=torch.bool, device=cuda_device))
+
+
+# (B, Sq, Sk, H, KV, hd, causal, window): chip_smoke.py's phase-18 sweep
+FLASH_SHAPES = [(2, 256, 256, 4, 2, 64, True, 0),
+                (1, 512, 512, 4, 1, 64, True, 64),
+                (2, 128, 128, 2, 2, 32, False, 0),
+                (1, 384, 384, 4, 4, 128, True, 0),
+                (1, 256, 256, 8, 2, 64, True, 128),
+                (1, 1000, 1000, 4, 2, 128, True, 0),
+                (1, 1000, 1000, 2, 1, 256, True, 300),
+                (1, 100, 100, 2, 1, 256, True, 0),
+                (2, 77, 77, 4, 1, 32, True, 0),
+                (1, 200, 333, 4, 2, 32, False, 0),
+                (1, 333, 200, 4, 1, 64, False, 64),
+                (1, 384, 384, 10, 1, 256, True, 128)]
+
+
+def _flash_inputs(device, B, Sq, Sk, H, KV, hd, dtype, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(B, S, n, hd, generator=g, device=device).to(dtype)
+            for S, n in ((Sq, H), (Sk, KV), (Sk, KV))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", FLASH_SHAPES)
+def test_cuda_flash_attention_matches_plain(cuda_device, B, Sq, Sk, H, KV,
+                                            hd, causal, window, dtype):
+    q, k, v = _flash_inputs(cuda_device, B, Sq, Sk, H, KV, hd, dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    o = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    r = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert o.dtype == dtype and bool(torch.isfinite(o).all())
+    err = (o.double() - r.double()).abs()
+    tol = 2e-5
+    if dtype == torch.bfloat16:
+        e = torch.floor(torch.log2(r.double().abs().clamp(min=2.0 ** -133)))
+        tol = tol + torch.exp2(e - 7)
+    assert bool((err <= tol).all()), err.max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, 1, 64, 64, 4, 2, 64, torch.float32)
+    bad = {"head_dim": (q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous()),
+           "one dtype": (q, k.bfloat16(), v),
+           "float32 or": (q.half(), k.half(), v.half()),
+           "contiguous": (q.transpose(1, 2), k, v),
+           "H % KV": (q[:, :, :3].contiguous(), k, v)}
+    for match, args in bad.items():
+        with pytest.raises(ValueError, match=match):
+            fa.flash_attention_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q.cpu(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,window", [(torch.bfloat16, 0),
+                                          (torch.float32, 700)])
+def test_cuda_flash_attention_op_grads_equal_plain(cuda_device, dtype,
+                                                   window):
+    """The op's q/k/v gradients under a fixed upstream gradient equal
+    ``mode="plain"``'s bitwise: both backwards are the same chunked
+    recompute from the same saved inputs."""
+    q, k, v = _flash_inputs(cuda_device, 2, 2048, 2048, 4, 2, 64, dtype)
+    w = torch.randn_like(q)
+    grads = {}
+    for mode in ("auto", "plain"):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*ins, True, window, mode=mode)
+        grads[mode] = torch.autograd.grad(o, ins, w)
+    for a, b in zip(grads["auto"], grads["plain"]):
+        assert torch.equal(_bits(a), _bits(b))

@@ -186,8 +186,8 @@ def test_launcher_quick_on_cpu(capsys, tmp_path):
 def test_port_imports_neither_jax_nor_repro():
     """Importing every module of the port (and chip_smoke.py) in a fresh
     interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
-    training slice's, the paged serving slice's and the RG-LRU slice's
-    modules are among them."""
+    training slice's, the paged serving slice's, the RG-LRU slice's and
+    the flash-attention slice's modules are among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -207,7 +207,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    'obs.emit', 'runtime.straggler', 'runtime.paged_kv',\n"
         "    'runtime.serve_loop', 'kernels.decode_attention', 'kernels.ops',\n"
         "    'models.model', 'adapters.delta', 'models.rglru',\n"
-        "    'kernels.rglru_scan')}\n"
+        "    'kernels.rglru_scan', 'kernels.flash_attention')}\n"
         "missing = sorted(need - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 55 else 0)\n")
