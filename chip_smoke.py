@@ -9,7 +9,7 @@ What it does, failing (non-zero exit, no result line) on any error:
    and CUDA versions, and the build of every CUDA kernel of the serving
    and training paths from the sources in the checkout (``nvcc`` for
    ``sm_90a``, one process per source, with the ``-Xptxas -v`` register
-   / shared-memory summary);
+   / shared-memory summary; a tensor-core kernel that spills fails);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the full-width ``internlm2-1.8b`` serving path:
    decode attention within a stated tolerance (GQA group 1/2/4, ring,
@@ -82,8 +82,11 @@ What it does, failing (non-zero exit, no result line) on any error:
    bitwise), and its forward and reversed times beside the bound and the
    plain version;
 15. the decode kernel at ``recurrentgemma-2b``'s local layers (MQA, 10
-   query heads, head_dim 256, a ring over the 2048-token window) against
-   its plain version with phase 2's tolerances, and its time;
+   query heads, head_dim 256, a ring over the 2048-token window; the
+   tensor-core kernel over the bf16 cache) against its plain version with
+   phase 2's tolerances, bf16 and f32 q, also with softcap and with a
+   non-ring window, and its time beside SDPA's and the bound, with a
+   profile of its two launches beside the f32 cache's CUDA-core body;
 16. the training main path: ``python -m repro_torch.launch.train --arch
    recurrentgemma-2b --reduce 0 --optimizer blockllm --batch 8 --seq 256
    --steps 8`` (full width and depth, remat on) with the launch counts
@@ -101,14 +104,15 @@ What it does, failing (non-zero exit, no result line) on any error:
    (per-token priming, 2 slots, so slots are reused) with the merged
    weights' streams, the reused slot's stream equal to a fresh server's,
    one decode-attention launch per local layer per decode pass;
-18. the flash-attention kernel (the port's slice 5) against its plain
-   version over a sweep (``tests/test_kernels.py``'s shapes, ragged S,
-   Sq != Sk non-causal, hd 32 / 64 / 128 / 256, f32 within 2e-5 and bf16
-   within one bf16 ulp of the plain output plus 2e-5), then at two main
-   shapes, ``internlm2-1.8b`` attention (B 2, S 4096, H 16, KV 8, hd 128,
-   causal) and ``recurrentgemma-2b``'s local attention (H 10, KV 1, hd
-   256, window 2048), its time beside the bound, the plain version and
-   SDPA;
+18. the flash-attention kernel (the port's slice 5; bf16 on the tensor
+   cores since slice 6) against its plain version over a sweep
+   (``tests/test_kernels.py``'s shapes, ragged S, Sq != Sk non-causal, hd
+   32 / 64 / 128 / 256, S 2048 causal, S 1000 windowed at hd 256; f32
+   within 2e-5 and bf16 within one bf16 ulp of the plain output plus
+   2e-5), then at two main shapes, ``internlm2-1.8b`` attention (B 2, S
+   4096, H 16, KV 8, hd 128, causal) and ``recurrentgemma-2b``'s local
+   attention (H 10, KV 1, hd 256, window 2048), its time beside the bound,
+   the plain version and SDPA, with the achieved and issued TFLOP/s;
 19. ``ops.flash_attention`` through autograd at the ``internlm2-1.8b``
    shape under the kernel profiler (launch counts reset just before and
    read just after: one launch per forward call; the record's bytes and
@@ -133,6 +137,7 @@ lists, and are deleted at the end.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -170,9 +175,12 @@ TRAIN_ARGV = ["--arch", ARCH, "--reduce", "0", "--optimizer", "blockllm+q8",
 # atol (each rounds its own f32 result once; near zero an ulp is below it)
 FLASH_F32_ATOL = 2e-5
 # (B, Sq, Sk, H, KV, hd, causal, window): tests/test_kernels.py's sweep,
-# ragged S (tiles of 64 rows, 32 at hd 256, and 32 keys), a q-tile smaller
-# than a tile, Sq != Sk non-causal (windowed rows past Sk see no key), hd
-# 32 / 64 / 128 / 256
+# ragged S (f32: tiles of 64 rows, 32 at hd 256, and 32 keys; bf16: 64-row
+# tiles against 64 keys, 32 at hd 256), a q-tile smaller than a tile, Sq !=
+# Sk non-causal (windowed rows past Sk see no key), hd 32 / 64 / 128 / 256;
+# S 2048 causal at hd 128 (many pipeline stages, interior blocks unmasked)
+# and S 1000 at hd 256 with window 300 and the local layers' 10 / 1 heads
+# (ragged, windowed)
 FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, 0),
                (1, 512, 512, 4, 1, 64, True, 64),
                (2, 128, 128, 2, 2, 32, False, 0),
@@ -184,7 +192,9 @@ FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, 0),
                (2, 77, 77, 4, 1, 32, True, 0),
                (1, 200, 333, 4, 2, 32, False, 0),
                (1, 333, 200, 4, 1, 64, False, 64),
-               (1, 384, 384, 10, 1, 256, True, 128))
+               (1, 384, 384, 10, 1, 256, True, 128),
+               (1, 2048, 2048, 4, 2, 128, True, 0),
+               (2, 1000, 1000, 10, 1, 256, True, 300))
 # the main shapes: (B, S, H, KV, hd, window), causal, bf16
 FLASH_MAIN = {"internlm2-1.8b": (2, 4096, 16, 8, 128, 0),
               "recurrentgemma-2b local": (2, 4096, 10, 1, 256, 2048)}
@@ -1650,38 +1660,47 @@ def check_rglru_scan(torch, rs, ops, results):
 def check_decode_attention_g10(torch, da, results):
     """The decode kernel at recurrentgemma-2b's local layers: MQA, 10
     query heads, head_dim 256, a ring over the 2048-token window (slots
-    before and after the wrap), bf16 and f32 q, phase 2's tolerances;
-    then its time with every slot past the wrap."""
+    before and after the wrap), bf16 and f32 q, phase 2's tolerances; the
+    same with softcap 30, and with a non-ring window of 700 < C; then its
+    time with every slot past the wrap."""
     from repro_torch.models.layers import decode_valid
     g = torch.Generator("cuda").manual_seed(14)
     B, C, KV, G, hd = 8, 2048, 1, 10, 256
-    pos = torch.tensor([0, 100, 2047, 2048, 2500, 3000, 4095, 9000],
-                       dtype=torch.int32, device="cuda")
+    ring_pos = [0, 100, 2047, 2048, 2500, 3000, 4095, 9000]
+    cases = [  # name, kwargs, pos
+        ("ring 2048", dict(window=C, ring=True), ring_pos),
+        ("ring 2048 softcap 30", dict(window=C, ring=True, softcap=30.0),
+         ring_pos),
+        ("window 700", dict(window=700),
+         [0, 100, 699, 700, 1000, 1500, 2000, 2047])]
     k = torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
-    kw = dict(window=C, ring=True)
     worst = 0.0
-    for qd in (torch.bfloat16, torch.float32):
-        q = torch.randn(B, 1, KV * G, hd, generator=g, device="cuda").to(qd)
-        o = da.decode_attention_cuda(q, k, v, pos, **kw)
-        r = da.decode_attention_plain(q, k, v, pos, **kw)
-        torch.cuda.synchronize()
-        err = (o.float() - r.float()).abs()
-        if qd == torch.float32:
-            tol = ATTN_F32_ATOL + ATTN_F32_RTOL * r.float().abs()
-            tol_s = f"rtol {ATTN_F32_RTOL} atol {ATTN_F32_ATOL}"
-        else:
-            tol = torch.full_like(err, ATTN_BF16_ATOL)
-            tol_s = f"atol {ATTN_BF16_ATOL}"
-            worst = err.max().item()
-        ok = bool((err <= tol).all()) and bool(torch.isfinite(o).all())
-        print(f"decode_attention [G10 hd256 ring 2048] B{B} KV{KV} q "
-              f"{str(qd)[6:]} cache bfloat16, pos {pos.tolist()}: "
-              f"max|kernel-plain| {err.max().item():.3g} ({tol_s}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("decode_attention at G = 10 disagrees with "
-                                 "its plain version")
+    for name, kw, pos in cases:
+        pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        for qd in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, 1, KV * G, hd, generator=g,
+                            device="cuda").to(qd)
+            o = da.decode_attention_cuda(q, k, v, pos, **kw)
+            r = da.decode_attention_plain(q, k, v, pos, **kw)
+            torch.cuda.synchronize()
+            err = (o.float() - r.float()).abs()
+            if qd == torch.float32:
+                tol = ATTN_F32_ATOL + ATTN_F32_RTOL * r.float().abs()
+                tol_s = f"rtol {ATTN_F32_RTOL} atol {ATTN_F32_ATOL}"
+            else:
+                tol = torch.full_like(err, ATTN_BF16_ATOL)
+                tol_s = f"atol {ATTN_BF16_ATOL}"
+                worst = max(worst, err.max().item())
+            ok = bool((err <= tol).all()) and bool(torch.isfinite(o).all())
+            print(f"decode_attention [G10 hd256 {name}] B{B} KV{KV} q "
+                  f"{str(qd)[6:]} cache bfloat16, pos {pos.tolist()}: "
+                  f"max|kernel-plain| {err.max().item():.3g} ({tol_s}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("decode_attention at G = 10 disagrees "
+                                     "with its plain version")
+    kw = dict(window=C, ring=True)
     copies = 8
     q = torch.randn(B, 1, KV * G, hd, generator=g, device="cuda").bfloat16()
     ks = [torch.randn(B, C, KV, hd, generator=g, device="cuda").bfloat16()
@@ -1716,7 +1735,29 @@ def check_decode_attention_g10(torch, da, results):
           f"{dev_ms['kernel']:.4f} ms, plain {dev_ms['plain']:.4f} ms, sdpa "
           f"{dev_ms['sdpa']:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
           f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
-          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+          f"{dev_ms['kernel'] / dev_ms['sdpa']:.2f}x sdpa, "
+          f"{dev_ms['kernel'] / max(t_bytes, t_ops):.1f}x the bound, "
+          f"{nbytes / dev_ms['kernel'] / 1e6:.0f} GB/s")
+    # where the time goes: the tensor-core kernel and its merge (10
+    # single-head groups) over the bf16 cache, against the CUDA-core body
+    # and its grouped merge over an f32 cache of the same rows
+    from torch.profiler import ProfilerActivity, profile
+    for name, kc, vc in (("bf16 cache", ks[0], vs[0]),
+                         ("f32 cache", ks[0].float(), vs[0].float())):
+        for _ in range(3):
+            da.decode_attention_cuda(q, kc, vc, pos, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                da.decode_attention_cuda(q, kc, vc, pos, **kw)
+            torch.cuda.synchronize()
+        split = ", ".join(
+            f"{e.key.split('(')[0].split('::')[-1]} "
+            f"{e.device_time_total / e.count:.2f} us"
+            for e in prof.key_averages() if e.device_time_total > 0)
+        print(f"decode_attention profile [G10 hd256 ring 2048] {name}, per "
+              f"call: {split}")
     del ks, vs
     torch.cuda.empty_cache()
 
@@ -1954,16 +1995,22 @@ def check_flash_attention(torch, fa, results):
         flops = fa.flash_flops(B, S, S, H, hd, causal=True, window=window)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
+        # the bf16 kernel issues Q.K^T once and P.V three times (p in
+        # three bf16 pieces): 4 units of tensor work where the function's
+        # operations count 2
+        tflops = flops / ms * 1e-9
         out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                         bound_ms=max(t_bytes, t_ops),
                         bound_by="bytes" if t_bytes >= t_ops else
-                        "operations")
+                        "operations", tflops=tflops, issued_tflops=2 * tflops)
         print(f"flash_attention time [{tag}] bf16: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms "
               f"({'boolean mask' if window else 'is_causal'}); bound "
               f"{max(t_bytes, t_ops):.4f} ms ({out[tag]['bound_by']}: "
               f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s, {nbytes / 1e6:.1f} "
-              f"MB at 3.35 TB/s); {ms / lib_ms:.1f}x sdpa, "
+              f"MB at 3.35 TB/s); {tflops:.1f} TFLOP/s of the function's "
+              f"operations, {2 * tflops:.1f} TFLOP/s of tensor work issued "
+              f"(4 units per pair and head dim); {ms / lib_ms:.2f}x sdpa, "
               f"{ms / max(t_bytes, t_ops):.1f}x the bound")
         del copies, tr
         torch.cuda.empty_cache()
@@ -2206,14 +2253,17 @@ def main() -> int:
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
         wants = {"decode_attention": ["Li4ELi2E",         # hd 128, G 2
-                                      "Li8ELi10E"],       # hd 256, G 10
+                                      "Li8ELi10E",        # f32 cache, G 10
+                                      # bf16 cache, G 10: tensor cores
+                                      "decode_attention_g10_mma_kernel"],
                  "paged_decode_attention": ["Li4ELi2ELb1E"],
                  "scatter_swap": ["scatter_swap"],
                  "rglru_scan": ["rglru_scan"],
-                 # bf16 at hd 128 (64-row q-tiles) and hd 256 (32 rows)
+                 # bf16 on the tensor cores at hd 128 and hd 256; f32
                  "flash_attention": [
-                     "flash_attention_kernelI13__nv_bfloat16Li128ELi64E",
-                     "flash_attention_kernelI13__nv_bfloat16Li256ELi32E"],
+                     "flash_attention_mma_kernelILi128E",
+                     "flash_attention_mma_kernelILi256E",
+                     "flash_attention_kernelILi128ELi64E"],
                  # f32 p, stored mask: the main path's instantiations
                  "masked_adam": ["masked_adam_kernelIfLb0ELb1E",
                                  "masked_adam_q8_kernelIfLb0ELb1E"]}[name]
@@ -2224,11 +2274,15 @@ def main() -> int:
                       f"{info['compiled']}, max registers over all entries "
                       f"{most}")
             for entry, line in rows:
-                at = max(entry.find("decode_attention_kernel"),
-                         entry.find("flash_attention_kernel"))
+                at = max(entry.find("decode_attention"),
+                         entry.find("flash_attention"))
                 short = entry[entry.find(name) if at < 0 else at:][:60]
                 print(f"    {short}: "
                       f"{line.replace('ptxas info    : ', '')}")
+                # the tensor-core kernels must not spill
+                spill = re.search(r"(\d+) bytes spill stores", line)
+                if "mma" in want and spill and int(spill.group(1)):
+                    raise AssertionError(f"{short} spills: {line}")
 
     # phases 2 + 3
     results = {}

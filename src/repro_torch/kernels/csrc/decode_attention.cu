@@ -12,7 +12,11 @@
 // The kernel body, what bounds it and what its design does about it are in
 // decode_attention.cuh, shared with the fused paged kernel
 // (paged_decode_attention.cu); this file instantiates its dense row map.
+// The one exception is G = 10 at head_dim 256 over a bf16 cache
+// (`recurrentgemma-2b`'s local layers), which runs the tensor-core kernel of
+// decode_attention_mma.cuh.
 #include "decode_attention.cuh"
+#include "decode_attention_mma.cuh"
 
 // Returns 0 on success, -1 for a shape the kernel does not take, else the
 // cudaError_t of the launches.  Allocates nothing: `ws` is an f32 workspace
@@ -27,8 +31,11 @@ extern "C" int decode_attention_launch(
   a.q = q; a.k = k; a.v = v; a.pos = pos; a.o = o; a.ws = ws;
   a.B = B; a.C = C; a.KV = KV; a.window = window; a.ring = ring;
   a.softcap = softcap; a.scale = scale; a.block_k = block_k;
-  return decode_attn::dispatch<false>(a, G, hd, q_bf16, kv_bf16,
-                                      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (G == decode_attn_mma::kG && hd == decode_attn_mma::kHD && kv_bf16)
+    return q_bf16 ? decode_attn_mma::launch_g10<__nv_bfloat16>(a, s)
+                  : decode_attn_mma::launch_g10<float>(a, s);
+  return decode_attn::dispatch<false>(a, G, hd, q_bf16, kv_bf16, s);
 }
 
 extern "C" const char* decode_attention_error_string(int code) {

@@ -8,9 +8,13 @@ q ``[B, Sq, H, hd]``, k/v ``[B, Sk, KV, hd]`` (bf16 or f32, one dtype)
 (window > 0).
 
 - ``flash_attention_cuda`` launches the Hopper kernel
-  (``csrc/flash_attention.cu``): one thread block per (b, h, q-tile),
-  scores, probabilities and P·V in f32, as the TPU kernel (which casts
-  q, k and v to f32);
+  (``csrc/flash_attention.cu``): one thread block per (b, h, q-tile).
+  bf16 inputs run on the tensor cores: Q·Kᵀ in bf16 ``mma`` (products
+  exact in f32), and P·V with p split exactly into three bf16 pieces
+  (``split_bf16x3``), so p keeps its f32 value as in the TPU kernel
+  (which casts q, k and v to f32).  f32 inputs run both products as f32
+  FMAs on the CUDA cores;
+- ``split_bf16x3`` is the split the bf16 kernel does in registers;
 - ``flash_attention_plain`` is the same function in plain PyTorch, the
   counterpart of ``repro.kernels.ref.flash_attention_ref``: f32 full
   attention, fully-masked rows zeroed.  The CPU tests use it, and on the
@@ -53,6 +57,19 @@ def flash_bytes(q, k, v) -> int:
     return 2 * q.nbytes + k.nbytes + v.nbytes
 
 
+def split_bf16x3(p):
+    """The bf16 kernel's split of f32 p into three bf16 pieces:
+    ``p1 = bf16(p)``, ``p2 = bf16(p - p1)``, ``p3 = bf16(p - p1 - p2)``.
+    Each subtraction is exact in f32, so ``p1 + p2 + p3 == p`` bitwise for
+    every p >= 2^-100 (below that the error stays under 2^-120)."""
+    p = p.float()
+    p1 = p.bfloat16()
+    r1 = p - p1.float()
+    p2 = r1.bfloat16()
+    p3 = (r1 - p2.float()).bfloat16()
+    return p1, p2, p3
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
     """Plain PyTorch version (``flash_attention_ref``): f32 full attention,
     GQA by ``repeat_interleave``, rows with no visible key give 0."""
@@ -76,10 +93,12 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, scale=None):
-    """Launch the Hopper kernel (``csrc/flash_attention.cu``).  Raises on
-    anything it does not take: q, k and v contiguous CUDA tensors of one
-    dtype (bf16 or f32) on one device, head_dim in ``HEAD_DIMS``, H a
-    multiple of KV, window >= 0.  Counts ``flash_attention``."""
+    """Launch the Hopper kernel (``csrc/flash_attention.cu``): the
+    tensor-core kernel for bf16 q, k and v, the CUDA-core kernel for f32.
+    Raises on anything it does not take: q, k and v contiguous, 16-byte
+    aligned CUDA tensors of one dtype (bf16 or f32) on one device,
+    head_dim in ``HEAD_DIMS``, H a multiple of KV, window >= 0.  Counts
+    ``flash_attention``."""
     ts = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash_attention_cuda needs CUDA tensors on one "

@@ -594,7 +594,7 @@ def _unembed(params, cfg, x):
 TRAIN_ATTN_IMPLS = ("full", "chunked")
 
 
-def _hidden(params, cfg, tokens, *, overlay=None, attn_impl="full"):
+def _hidden(params, cfg, tokens, *, attn_impl, overlay=None):
     """Final-norm hidden states [B, S, D] of a full-sequence pass."""
     check_supported(cfg)
     if attn_impl not in TRAIN_ATTN_IMPLS:
@@ -610,10 +610,11 @@ def _hidden(params, cfg, tokens, *, overlay=None, attn_impl="full"):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, overlay=None,
-            attn_impl="full"):
+            attn_impl="chunked"):
     """Full-sequence teacher-forced logits [B, S, vocab].  ``attn_impl``
-    ``chunked`` runs ``layers.attention_chunked`` past 2048 tokens (as
-    JAX's ``forward``), ``full`` always ``attention_full``."""
+    ``chunked`` (the default, as JAX's ``forward``) runs
+    ``layers.attention_chunked`` past 2048 tokens, ``full`` always
+    ``attention_full``."""
     return _unembed(params, cfg, _hidden(params, cfg, tokens,
                                          overlay=overlay,
                                          attn_impl=attn_impl))
@@ -663,7 +664,7 @@ def _chunked_xent(params, cfg, hidden, labels, mask, chunk):
     return total
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="full",
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
             loss_chunk=None, overlay=None):
     """Next-token cross entropy.  Returns ``(loss, metrics)``.
 

@@ -139,6 +139,38 @@ def test_loss_chunked_attention_matches_jax(arch, replace, monkeypatch):
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4)
 
 
+def test_default_attn_impl_is_chunked_as_jax(monkeypatch):
+    """``forward`` and ``loss_fn`` called without ``attn_impl`` run the
+    chunked branch past 2048 tokens, as JAX's defaults do: at S = 3072 the
+    port's logits and loss agree with JAX's (called without the keyword
+    too) within the chunked branch's f32 tolerances, and the port's default
+    equals its explicit ``attn_impl="chunked"`` bitwise."""
+    jcfg, cfg, jparams, params = _model("internlm2-1.8b", num_layers=2)
+    tokens = np.random.RandomState(9).randint(
+        0, cfg.vocab_size, (1, 3072)).astype(np.int32)
+    jt = jnp.asarray(tokens)
+    jlog = jax.jit(lambda p, t: jmodel.forward(p, jcfg, {"tokens": t})[0])(
+        jparams, jt)
+    jl = jax.jit(lambda p, t: jmodel.loss_fn(p, jcfg, {"tokens": t})[0])(
+        jparams, jt)
+    calls = []
+    chunked = tlayers.attention_chunked
+    monkeypatch.setattr(tlayers, "attention_chunked",
+                        lambda *a, **k: calls.append(1) or chunked(*a, **k))
+    tt = torch.from_numpy(tokens).long()
+    with torch.no_grad():
+        log = tmodel.forward(params, cfg, tt)
+        assert len(calls) == cfg.num_layers
+        tl, _ = tmodel.loss_fn(params, cfg, {"tokens": tt})
+        log_c = tmodel.forward(params, cfg, tt, attn_impl="chunked")
+        tl_c, _ = tmodel.loss_fn(params, cfg, {"tokens": tt},
+                                 attn_impl="chunked")
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog, np.float32),
+                               rtol=1e-4, atol=F32_ATOL)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4)
+    assert torch.equal(log, log_c) and torch.equal(tl, tl_c)
+
+
 def test_forward_and_loss_take_attn_impl(tiny_cfg, monkeypatch):
     """``forward`` takes ``attn_impl`` (full / chunked; chunked only past
     2048 tokens, as JAX), both refuse anything else, and a BlockLLM trainer

@@ -14,8 +14,9 @@ operations in the same order (no FMA), so f32 results are held within 2
 ulp, bf16 parameters within one bf16 ulp, and the Q8 codes and scales
 bitwise.  Flash attention: f32 outputs atol 2e-5 (the JAX sweep's bound),
 bf16 outputs within one bf16 ulp of the plain output plus 2e-5 (each
-rounds its own f32 result once); the op's gradients bitwise
-``mode="plain"``'s (the same chunked recompute).
+rounds its own f32 result once; bf16 runs the tensor-core kernel, f32 the
+CUDA-core one); the op's gradients bitwise ``mode="plain"``'s (the same
+chunked recompute).
 """
 import numpy as np
 import pytest
@@ -411,22 +412,32 @@ def test_cuda_rglru_scan_rejects_what_it_does_not_take(cuda_device):
         rs.rglru_scan_cuda(a, b, h0[:, :16])
 
 
+G10_RING_POS = [0, 100, 2047, 2048, 2500, 3000, 4095, 9000]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw,pos", [
+    (dict(window=2048, ring=True), G10_RING_POS),
+    (dict(window=2048, ring=True, softcap=30.0), G10_RING_POS),
+    (dict(window=700), [0, 100, 699, 700, 1000, 1500, 2000, 2047])],
+    ids=["ring", "ring-softcap", "window"])
 @pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32])
-def test_cuda_decode_attention_g10_ring(cuda_device, qdt):
+def test_cuda_decode_attention_g10_ring(cuda_device, qdt, kw, pos):
     """recurrentgemma-2b's local layers: MQA with 10 query heads, head_dim
     256, a ring cache over the 2048-token window, before and after the
-    ring wraps (tolerances of the other decode-attention cases)."""
+    ring wraps; the same with softcap, and a non-ring window shorter than
+    the cache (the tensor-core kernel over a bf16 cache; tolerances of the
+    other decode-attention cases)."""
     g = torch.Generator(cuda_device).manual_seed(3)
     B, C, KV, G, hd = 8, 2048, 1, 10, 256
     q = torch.randn(B, 1, KV * G, hd, generator=g, device=cuda_device).to(qdt)
     k = torch.randn(B, C, KV, hd, generator=g, device=cuda_device).bfloat16()
     v = torch.randn(B, C, KV, hd, generator=g, device=cuda_device).bfloat16()
-    pos = torch.tensor([0, 100, 2047, 2048, 2500, 3000, 4095, 9000],
-                       dtype=torch.int32, device=cuda_device)
-    kw = dict(window=2048, ring=True)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    before = ops.LAUNCHES["decode_attention"]
     o = ops.decode_attention(q, k, v, pos, **kw)
     r = ops.decode_attention(q, k, v, pos, mode="plain", **kw)
+    assert ops.LAUNCHES["decode_attention"] == before + 1
     if qdt == torch.float32:
         torch.testing.assert_close(o, r, **F32_TOL)
     else:
@@ -452,7 +463,9 @@ FLASH_SHAPES = [(2, 256, 256, 4, 2, 64, True, 0),
                 (2, 77, 77, 4, 1, 32, True, 0),
                 (1, 200, 333, 4, 2, 32, False, 0),
                 (1, 333, 200, 4, 1, 64, False, 64),
-                (1, 384, 384, 10, 1, 256, True, 128)]
+                (1, 384, 384, 10, 1, 256, True, 128),
+                (1, 2048, 2048, 4, 2, 128, True, 0),
+                (2, 1000, 1000, 10, 1, 256, True, 300)]
 
 
 def _flash_inputs(device, B, Sq, Sk, H, KV, hd, dtype, seed=0):
@@ -494,6 +507,19 @@ def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda_device):
             fa.flash_attention_cuda(*args)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q.cpu(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_rejects_unaligned_views(cuda_device, dtype):
+    """Both kernels read 16-byte rows: a contiguous view that starts one
+    element into its storage is refused, in bf16 as in f32."""
+    q, k, v = _flash_inputs(cuda_device, 1, 64, 64, 4, 2, 64, dtype)
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = buf[1:].view(q.shape).copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(shifted, k, v)
 
 
 @pytest.mark.cuda

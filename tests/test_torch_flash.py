@@ -144,6 +144,52 @@ def test_flop_and_byte_counts():
     assert fa.flash_bytes(q, k, v) == 2 * q.nbytes + k.nbytes + v.nbytes
 
 
+# ------------------------------------- the bf16 kernel's three-piece split
+
+
+def _pieces_sum(p):
+    p1, p2, p3 = fa.split_bf16x3(p)
+    assert p1.dtype == p2.dtype == p3.dtype == torch.bfloat16
+    return p1.float() + p2.float() + p3.float()
+
+
+def test_split_bf16x3_is_exact_above_2_pow_minus_100():
+    """p1 + p2 + p3 == p bitwise for 10^5 seeded p log-uniform in
+    [2^-100, 1], 10^5 uniform in [0, 1], 1.0, the largest f32 below 1 and
+    every power of two from 2^-100 to 1: P.V with the three pieces keeps
+    p's f32 value."""
+    rng = np.random.RandomState(11)
+    p = np.concatenate([
+        2.0 ** rng.uniform(-100, 0, 100_000), rng.uniform(0, 1, 100_000),
+        [1.0, np.nextafter(np.float32(1), np.float32(0))],
+        2.0 ** np.arange(-100, 1)]).astype(np.float32)
+    p = torch.from_numpy(p[p >= 2.0 ** -100])
+    assert p.numel() > 200_000
+    assert torch.equal(_pieces_sum(p), p)
+
+
+def test_split_bf16x3_needs_the_third_piece():
+    """Two pieces hold 16 of p's 24 significant bits: most p are not
+    p1 + p2, which is why the kernel runs a third P.V product."""
+    rng = np.random.RandomState(12)
+    p = torch.from_numpy(rng.uniform(0, 1, 100_000).astype(np.float32))
+    p1, p2, _ = fa.split_bf16x3(p)
+    two = p1.float() + p2.float()
+    assert (two != p).float().mean().item() > 0.9
+    assert (two - p).abs().max().item() > 0
+
+
+def test_split_bf16x3_error_below_2_pow_minus_100():
+    """Below 2^-100 the last piece can fall under bf16's normal range; the
+    error of the three pieces stays under 2^-120."""
+    rng = np.random.RandomState(13)
+    p = np.concatenate([2.0 ** rng.uniform(-149, -100, 100_000),
+                        2.0 ** np.arange(-149, -100), [0.0]])
+    p = torch.from_numpy(p.astype(np.float32))
+    err = (_pieces_sum(p).double() - p.double()).abs()
+    assert err.max().item() < 2.0 ** -120
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = _t(*_qkv(1, 8, 8, 2, 1, 32))
     with pytest.raises(ValueError, match="CUDA"):
