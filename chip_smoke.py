@@ -9,7 +9,8 @@ What it does, failing (non-zero exit, no result line) on any error:
    and CUDA versions, and the build of every CUDA kernel of the serving
    and training paths from the sources in the checkout (``nvcc`` for
    ``sm_90a``, one process per source, with the ``-Xptxas -v`` register
-   / shared-memory summary; a tensor-core kernel that spills fails);
+   / shared-memory summary; a tensor-core kernel or an instantiation of
+   the shared decode-attention body that spills fails);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the full-width ``internlm2-1.8b`` serving path:
    decode attention within a stated tolerance (GQA group 1/2/4, ring,
@@ -18,7 +19,10 @@ What it does, failing (non-zero exit, no result line) on any error:
 3. each kernel's time (CUDA events, warm, L2 exceeded) beside its bound
    (bytes over 3.35 TB/s or operations over the peak rate, whichever is
    larger), its plain version's time and one PyTorch library call's time
-   as a yardstick;
+   as a yardstick; decode attention's ``torch.profiler`` record at the
+   timing case and at serving contexts of max_seq 1024 (one kernel, one
+   launch a call) and its output bitwise the same over 3 back-to-back
+   launches and 20 CUDA-graph replays;
 4. the main path: ``python -m repro_torch.launch.serve`` at the full
    width of ``internlm2-1.8b`` (random weights from a seed, two demo
    adapter tenants, the kernel decode attention), with every kernel's
@@ -60,7 +64,8 @@ What it does, failing (non-zero exit, no result line) on any error:
    softcap, inactive slots, shared prefix pages, writes on a page's first
    and last row and a shuffled page table; its time at the main path's
    shapes beside the dense kernel, the bound, the plain version and
-   gather + SDPA;
+   gather + SDPA, its profiler record (one launch a call) and its output
+   bitwise over back-to-back launches and graph replays;
 11. the paged main path: ``python -m repro_torch.launch.serve --paged``
    at full width and depth (8 slots, max_seq 1024, 16 requests, base + 2
    demo tenants over a shared system prompt) with the launch counts reset
@@ -250,6 +255,62 @@ def graph_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def replay_bitwise(torch, fn, ref) -> bool:
+    """3 back-to-back calls, then 20 calls captured in one CUDA graph and
+    replayed twice: whether every output equals ``ref`` bit for bit (an
+    arrival counter that a launch left non-zero would change the next
+    launch's merge)."""
+    outs = [fn() for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [fn() for _ in range(20)]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(o, ref) for o in outs + captured)
+
+
+def profile_records(torch, fn, calls: int = 20):
+    """{kernel: (launches per call, device us per launch)} of ``fn(i)``
+    over ``calls`` warm calls under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    rec = {}                 # by kernel name, template arguments dropped
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.split("(")[0].split("::")[-1].split("<")[0]
+            n, t = rec.get(name, (0, 0.0))
+            rec[name] = (n + e.count, t + e.device_time_total)
+    return {k: (n / calls, t / n) for k, (n, t) in rec.items()}
+
+
+def one_launch_profile(torch, name, shape, fn, calls: int = 20):
+    """The profile of one decode-attention call: one kernel, launched
+    once a call (the wrapper's count; the profiler's records, which can
+    miss some launches, show no second kernel)."""
+    from repro_torch.kernels import build
+    before = build.LAUNCHES[name]
+    rec = profile_records(torch, fn, calls)
+    launched = build.LAUNCHES[name] - before - 3     # 3 warm-up calls
+    split = ", ".join(f"{k} x{n:g} {us:.2f} us" for k, (n, us) in rec.items())
+    print(f"{name} profile [{shape}], per call: {split}; {launched} wrapper "
+          f"launches for {calls} calls")
+    if len(rec) != 1 or launched != calls or next(iter(rec.values()))[0] > 1:
+        raise AssertionError(f"{name}: {len(rec)} kernels, {launched} "
+                             f"launches for {calls} calls, not one a call")
+
+
 def ptxas_summary(log: str, want: str):
     """(entry, registers, spill line) for entries whose name holds
     ``want``, plus the largest register count of the whole library."""
@@ -346,6 +407,30 @@ def check_decode_attention(torch, da, results):
     nbytes = 2 * q.nbytes + rows * KV * hd * 2 * 2
     flops = rows * KV * 2 * hd * 4               # QK and PV, G = 2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    # one launch per call, at the timing case and at serving contexts of
+    # the main path's max_seq 1024; and bitwise over launches and replays
+    one_launch_profile(torch, "decode_attention", f"G2 hd{hd} C{C} pos "
+                       f"{pos_main}", fns["kernel"])
+    srv_pos = torch.tensor([351, 420, 500, 610, 700, 760, 800, 821],
+                           dtype=torch.int32, device=dev)
+    k1 = [k[:, :1024].contiguous() for k in ks]
+    v1 = [v[:, :1024].contiguous() for v in vs]
+
+    def serving(i):
+        return da.decode_attention_cuda(q, k1[i % copies], v1[i % copies],
+                                        srv_pos)
+    srv_ms = graph_time_ms(serving)
+    one_launch_profile(torch, "decode_attention", f"G2 hd{hd} C1024 pos "
+                       f"{srv_pos.tolist()}", serving)
+    print(f"decode_attention time B{B} C1024 KV{KV} G2 hd{hd} bf16, pos "
+          f"{srv_pos.tolist()}: device (graph replay) kernel {srv_ms:.4f} "
+          f"ms")
+    del k1, v1
+    same = replay_bitwise(torch, lambda: fns["kernel"](0), fns["kernel"](0))
+    print(f"decode_attention [main G2 bf16] 3 back-to-back launches and 20 "
+          f"graph replays bitwise the first: {same}")
+    if not same:
+        raise AssertionError("decode_attention varies across launches")
     results["decode_attention"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
@@ -559,6 +644,16 @@ def time_paged_decode_attention(torch, np, da, results, worst):
     eager_ms = {k: cuda_time_ms(f, 50) for k, f in fns.items()}
     # bound: q, the new rows read; rows 0..pos-1 of K and V read once
     # (row pos comes from the new row); o and the new rows written
+    one_launch_profile(torch, "paged_decode_attention",
+                       f"G{G} hd{hd} ps{ps} NP{NP} contexts {ctx}",
+                       fns["kernel"])
+    same = replay_bitwise(torch, lambda: fns["kernel"](0)[0],
+                          fns["kernel"](0)[0])
+    print(f"paged_decode_attention [main G2 hd128 bf16] 3 back-to-back "
+          f"launches and 20 graph replays bitwise the first: {same}")
+    if not same:
+        raise AssertionError("paged_decode_attention varies across "
+                             "launches")
     rows = sum(ctx)
     nbytes = (2 * q.nbytes + 2 * (nk.nbytes + nv.nbytes)
               + rows * KV * hd * 2 * 2
@@ -2252,11 +2347,11 @@ def main() -> int:
           f"(nvcc sm_90a, one process per source, in parallel)")
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
-        wants = {"decode_attention": ["Li4ELi2E",         # hd 128, G 2
-                                      "Li8ELi10E",        # f32 cache, G 10
+        wants = {"decode_attention": ["Li128ELi2E",       # hd 128, G 2
+                                      "Li256ELi10E",      # f32 cache, G 10
                                       # bf16 cache, G 10: tensor cores
                                       "decode_attention_g10_mma_kernel"],
-                 "paged_decode_attention": ["Li4ELi2ELb1E"],
+                 "paged_decode_attention": ["Li128ELi2ELb1E"],
                  "scatter_swap": ["scatter_swap"],
                  "rglru_scan": ["rglru_scan"],
                  # bf16 on the tensor cores at hd 128 and hd 256; f32
@@ -2283,6 +2378,18 @@ def main() -> int:
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 if "mma" in want and spill and int(spill.group(1)):
                     raise AssertionError(f"{short} spills: {line}")
+        if name in ("decode_attention", "paged_decode_attention"):
+            # nor any instantiation of the shared decode body
+            rows, _ = ptxas_summary(info["log"], "decode_attention_kernel")
+            regs = [int(l.split("Used")[1].split("registers")[0])
+                    for _, l in rows if "Used" in l]
+            spills = [e for e, l in rows if re.search(
+                r"[1-9]\d* bytes spill stores", l)]
+            print(f"    decode_attention_kernel: {len(regs)} "
+                  f"instantiations, {min(regs)}-{max(regs)} registers, "
+                  f"{len(spills)} spilling")
+            if spills:
+                raise AssertionError(f"{name}: {spills[0]} spills")
 
     # phases 2 + 3
     results = {}

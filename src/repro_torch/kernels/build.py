@@ -76,10 +76,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     n = ctypes.c_longlong
     if name == "decode_attention":
         fns = [(lib.decode_attention_launch,
-                [p] * 6 + [i] * 9 + [f, f, i, p])]
+                [p] * 7 + [i] * 9 + [f, f, i, p])]
     elif name == "paged_decode_attention":
         fns = [(lib.paged_decode_attention_launch,
-                [p] * 10 + [i] * 9 + [f, f, i, p])]
+                [p] * 11 + [i] * 9 + [f, f, i, p])]
     elif name == "scatter_swap":
         fns = [(lib.scatter_swap_launch, [p, p, p, p, i, n, p])]
     elif name == "rglru_scan":

@@ -21,23 +21,28 @@
 // No other block reads the write page's new row: copy-on-write gives the
 // write page refcount 1, and only the k-block holding pos covers it.
 //
-// The kernel body, what bounds it (memory: the pages from lo to pos, read
-// once) and what its design does about it are in decode_attention.cuh; this
-// file instantiates its paged row map.
+// What bounds it (memory: the pages from lo to pos, read once), what the
+// design does about it and its known limits are in decode_attention.cuh;
+// this file instantiates its paged row map.  Paged-specific: each block
+// loads its k-block's page-table entries once, into shared memory, beside
+// pos, so no K/V copy waits on a table read; the new row enters the tile
+// from new_k / new_v, and the block holding pos stores it to the pool.
 #include "decode_attention.cuh"
 
 // Returns 0 on success, -1 for a shape the kernel does not take, else the
-// cudaError_t of the launches.  Allocates nothing: `ws` is an f32 workspace
-// of B * KV * ceil(NP * ps / min(block_k, NP * ps)) * G * (hd + 2) floats.
-// Runs on `stream`.
+// cudaError_t of the launch.  Allocates nothing: `ws` is an f32 workspace
+// of B * KV * ceil(NP * ps / min(block_k, NP * ps)) * partial_floats(G, hd)
+// floats; `counters` holds at least B * KV int32 arrival counts, zero before
+// the launch and zero after it.  Runs on `stream`.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* new_k, const void* new_v, void* k_pool,
     void* v_pool, const int32_t* pos, const int32_t* page_table,
-    const uint8_t* active, void* o, float* ws, int B, int NP, int ps, int KV,
-    int G, int hd, int q_bf16, int kv_bf16, int window, float softcap,
-    float scale, int block_k, void* stream) {
+    const uint8_t* active, void* o, float* ws, int32_t* counters, int B,
+    int NP, int ps, int KV, int G, int hd, int q_bf16, int kv_bf16,
+    int window, float softcap, float scale, int block_k, void* stream) {
   decode_attn::Args a{};
   a.q = q; a.k = k_pool; a.v = v_pool; a.pos = pos; a.o = o; a.ws = ws;
+  a.counters = counters;
   a.B = B; a.C = NP * ps; a.KV = KV; a.window = window; a.ring = 0;
   a.softcap = softcap; a.scale = scale; a.block_k = block_k;
   a.tbl = page_table; a.active = active; a.new_k = new_k; a.new_v = new_v;

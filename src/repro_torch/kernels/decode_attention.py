@@ -7,13 +7,17 @@ written.  Counterpart of ``repro.kernels.decode_attention``:
 
 - ``decode_attention_cuda`` launches the hand-written Hopper kernel
   (``csrc/decode_attention.cu``), whose reads scale with each slot's
-  context: it walks only the k-blocks ``block_bounds`` gives;
+  context: it walks only the k-blocks ``block_bounds`` gives, one launch
+  per call (the last block of each slot and kv head merges the k-block
+  partials, counted in ``arrival_counters``);
 - ``decode_attention_plain`` is the same function in plain PyTorch and
   the same arithmetic (f32 online softmax over ``block_k`` blocks with
   the ``-1e30`` guards), used for CPU tensors and as the kernel's
   reference on the card;
 - ``block_bounds``, ``cache_read_bytes`` and ``paged_cache_read_bytes``
-  are the host-side traffic model, equal to the JAX package's.
+  are the host-side traffic model, equal to the JAX package's;
+  ``partial_floats`` and ``workspace_floats`` size the kernels' f32
+  workspace of k-block partials.
 
 Paged KV (``runtime/paged_kv.py``): the fused write+attend step over
 page pools ``[P, ps, KV, hd]`` addressed through a page table
@@ -45,6 +49,47 @@ _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_GROUPS = (1, 2, 4, 8, 10)          # 10: the dense kernel only
 _PAGED_KERNEL_GROUPS = (1, 2, 4, 8)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# per (kernel, device): int32 arrival counts of the k-block partials of
+# each (slot, kv head), zeroed once; every launch leaves them zero
+_COUNTERS = {}
+_MIN_COUNTERS = 4096
+
+
+def partial_floats(G, head_dim):
+    """Floats of one k-block partial: G x head_dim accumulators, then G
+    maxima and G denominators, padded to 16 bytes (``partial_floats`` in
+    ``csrc/decode_attention.cuh``; at G = 10 exactly the per-head layout
+    G x (head_dim + 2) of the tensor-core kernel's merge)."""
+    return G * head_dim + -(-2 * G // 4) * 4
+
+
+def workspace_floats(B, KV, C, G, head_dim, block_k):
+    """Floats of the kernels' workspace: one partial per (slot, kv head,
+    k-block of ``min(block_k, C)`` rows)."""
+    nk = -(-C // min(block_k, C))
+    return B * KV * nk * partial_floats(G, head_dim)
+
+
+def arrival_counters(name, device, n):
+    """The int32 arrival counters of kernel ``name`` on ``device``, at
+    least ``n`` of them (one per slot and kv head).  Allocated and zeroed
+    once, grown only when a call needs more; the kernels leave them zero,
+    so back-to-back launches and CUDA-graph replays reuse them.  Launches
+    of one kernel that share them must be ordered on one stream."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (name, str(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: {n} arrival counters needed while "
+                               f"a CUDA graph is captured; call once "
+                               f"outside the capture first")
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def block_bounds(pos, *, seq_len, window=0, ring=False, block_k=128):
@@ -132,9 +177,9 @@ def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0, ring=False,
 
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0, ring=False,
                           softcap=0.0, scale=None, block_k=128):
-    """Launch the Hopper kernel (``csrc/decode_attention.cu``).  Raises on
-    anything it does not take; allocates the output and the kernel's f32
-    workspace of per-k-block partials."""
+    """Launch the Hopper kernel (``csrc/decode_attention.cu``), one launch
+    a call.  Raises on anything it does not take; allocates the output and
+    the kernel's f32 workspace of per-k-block partials."""
     if not (q.is_cuda and k_cache.is_cuda and v_cache.is_cuda):
         raise ValueError("decode_attention_cuda needs CUDA tensors")
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4:
@@ -167,15 +212,15 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0, ring=False,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     pos_b = _pos_vector(pos, B, q.device).contiguous()
     o = torch.empty_like(q)
-    # per (slot, kv head, k-block): G maxima, G denominators, G x hd sums
-    nk = -(-C // min(block_k, C))
-    ws = torch.empty(B * KV * nk * G * (hd + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty(workspace_floats(B, KV, C, G, hd, block_k),
+                     dtype=torch.float32, device=q.device)
+    cnt = arrival_counters("decode_attention", q.device, B * KV)
     lib = build.library("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_b.data_ptr(), o.data_ptr(), ws.data_ptr(), B, C, KV, G, hd,
+        pos_b.data_ptr(), o.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, C,
+        KV, G, hd,
         int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
         int(window), int(bool(ring)), ctypes.c_float(softcap),
         ctypes.c_float(scale), int(block_k), ctypes.c_void_p(stream))
@@ -252,11 +297,11 @@ def paged_decode_attention_plain(q, new_k, new_v, k_pool, v_pool, pos,
 def paged_decode_attention_cuda(q, new_k, new_v, k_pool, v_pool, pos,
                                 page_table, active, *, window=0, softcap=0.0,
                                 scale=None, block_k=128):
-    """Launch the fused paged kernel (``csrc/paged_decode_attention.cu``).
-    Raises on anything it does not take; the pools, ``pos``, the page
-    table and ``active`` must already be on the card (nothing is copied
-    from the host here).  Updates the pools in place; returns ``(o,
-    k_pool, v_pool)``."""
+    """Launch the fused paged kernel (``csrc/paged_decode_attention.cu``),
+    one launch a call.  Raises on anything it does not take; the pools,
+    ``pos``, the page table and ``active`` must already be on the card
+    (nothing is copied from the host here).  Updates the pools in place;
+    returns ``(o, k_pool, v_pool)``."""
     ts = (q, new_k, new_v, k_pool, v_pool, pos, page_table, active)
     if not all(torch.is_tensor(t) and t.is_cuda for t in ts):
         raise ValueError("paged_decode_attention_cuda needs CUDA tensors "
@@ -307,15 +352,15 @@ def paged_decode_attention_cuda(q, new_k, new_v, k_pool, v_pool, pos,
     tbl = page_table.contiguous()
     act = active.contiguous()
     o = torch.empty_like(q)
-    nkb = -(-C // min(block_k, C))
-    ws = torch.empty(B * KV * nkb * G * (hd + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty(workspace_floats(B, KV, C, G, hd, block_k),
+                     dtype=torch.float32, device=q.device)
+    cnt = arrival_counters("paged_decode_attention", q.device, B * KV)
     lib = build.library("paged_decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.paged_decode_attention_launch(
         q.data_ptr(), nk.data_ptr(), nv.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), pos_b.data_ptr(), tbl.data_ptr(), act.data_ptr(),
-        o.data_ptr(), ws.data_ptr(), B, NP, ps, KV, G, hd,
+        o.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, NP, ps, KV, G, hd,
         int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
         int(window), ctypes.c_float(softcap), ctypes.c_float(scale),
         int(block_k), ctypes.c_void_p(stream))

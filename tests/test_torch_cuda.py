@@ -46,28 +46,65 @@ def _bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
+POS8 = [0, 127, 128, 1000, 2047, 513, 1536, 3000]
+
+
+def _same_bits_over_launches_and_replays(fn, ref):
+    """3 back-to-back launches, then 20 calls captured in a CUDA graph and
+    replayed twice: every output bitwise ``ref`` (a counter left non-zero
+    by one launch would change the next one's merge)."""
+    outs = [fn() for _ in range(3)]
+    for o in outs:
+        assert torch.equal(_bits(o), _bits(ref))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(20)]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(_bits(o), _bits(ref))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,window,ring,softcap,qdt,hd", [
-    (2, 0, False, 0.0, torch.bfloat16, 128), (1, 0, False, 0.0,
-                                              torch.float32, 128),
-    (4, 256, False, 0.0, torch.float32, 64), (2, 512, True, 0.0,
-                                             torch.float32, 128),
-    (2, 0, False, 30.0, torch.float32, 256), (8, 0, False, 0.0,
-                                              torch.float32, 32)])
+@pytest.mark.parametrize("G,window,ring,softcap,qdt,hd,cdt,C,block_k,pos", [
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 2048, 128, POS8),
+    (1, 0, False, 0.0, torch.float32, 128, torch.bfloat16, 2048, 128, POS8),
+    (4, 256, False, 0.0, torch.float32, 64, torch.bfloat16, 2048, 128, POS8),
+    (2, 512, True, 0.0, torch.float32, 128, torch.bfloat16, 512, 128, POS8),
+    (2, 0, False, 30.0, torch.float32, 256, torch.bfloat16, 2048, 128, POS8),
+    (8, 0, False, 0.0, torch.float32, 32, torch.bfloat16, 2048, 128, POS8),
+    # 32 k-blocks; C not a multiple of block_k; block_k 64 and 256; B 1;
+    # every pos 0; an f32 cache at hd 256 (a ring of stages)
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 4096, 128,
+     [0, 127, 4095, 1000, 2047, 3000, 4000, 64]),
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 1000, 128,
+     [999, 127, 128, 998, 0, 513, 896, 64]),
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 2048, 64, POS8),
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 2048, 256,
+     POS8),
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 2048, 128,
+     [1500]),
+    (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 2048, 128,
+     [0] * 8),
+    (2, 0, False, 0.0, torch.float32, 256, torch.float32, 2048, 128, POS8)])
 def test_cuda_decode_attention_matches_plain(cuda_device, G, window, ring,
-                                             softcap, qdt, hd):
+                                             softcap, qdt, hd, cdt, C,
+                                             block_k, pos):
     g = torch.Generator(cuda_device).manual_seed(0)
-    B, C, KV = 8, 512 if ring else 2048, 8
+    B, KV = len(pos), 8
     q = torch.randn(B, 1, KV * G, hd, generator=g, device=cuda_device).to(qdt)
-    k = torch.randn(B, C, KV, hd, generator=g,
-                    device=cuda_device).bfloat16()
-    v = torch.randn(B, C, KV, hd, generator=g,
-                    device=cuda_device).bfloat16()
-    pos = torch.tensor([0, 127, 128, 1000, 2047, 513, 1536, 3000],
-                       dtype=torch.int32, device=cuda_device)
+    k = torch.randn(B, C, KV, hd, generator=g, device=cuda_device).to(cdt)
+    v = torch.randn(B, C, KV, hd, generator=g, device=cuda_device).to(cdt)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
     if not ring:
         pos = pos.clamp(max=C - 1)
-    kw = dict(window=window, ring=ring, softcap=softcap)
+    kw = dict(window=window, ring=ring, softcap=softcap, block_k=block_k)
     before = ops.LAUNCHES["decode_attention"]
     o = ops.decode_attention(q, k, v, pos, **kw)
     r = ops.decode_attention(q, k, v, pos, mode="plain", **kw)
@@ -77,6 +114,8 @@ def test_cuda_decode_attention_matches_plain(cuda_device, G, window, ring,
     else:
         torch.testing.assert_close(o.float(), r.float(), rtol=0,
                                    atol=BF16_ATOL)
+    _same_bits_over_launches_and_replays(
+        lambda: ops.decode_attention(q, k, v, pos, **kw), o)
 
 
 @pytest.mark.cuda
@@ -232,17 +271,22 @@ def _flatten_leaves(tree):
     return _flatten_with_names(list(tree))[1]
 
 
-def _paged_state(dev, G, hd, qdt, pdt, seed=0, B=8, KV=8, ps=16, NP=64):
+PAGED_POS = [16, 31, 200, 511, 900, 1023, 47, 64]
+
+
+def _paged_state(dev, G, hd, qdt, pdt, seed=0, KV=8, ps=16, NP=64,
+                 pos=PAGED_POS):
     """A valid paged decode state: shuffled pages, entries past pos
-    unmapped, slots 2/6/7 sharing their first two pages (none of them
-    writes there), slots 3 and 7 inactive; pos on a page's first and last
-    rows."""
+    unmapped; with 8 slots, slots 2/6/7 share their first two pages where
+    none of them writes there, and slots 3 and 7 are inactive.  The
+    default pos sits on a page's first and last rows."""
     rng = np.random.default_rng(seed)
+    B = len(pos)
     P = B * NP + 1
-    pos = [16, 31, 200, 511, 900, 1023, 47, 64]
     tbl = (1 + rng.permutation(P - 1))[:B * NP].reshape(B, NP)
-    for b in (6, 7):
-        tbl[b, :2] = tbl[2, :2]
+    if B == 8 and min(pos[2], pos[6], pos[7]) >= 2 * ps:
+        for b in (6, 7):
+            tbl[b, :2] = tbl[2, :2]
     for b, p in enumerate(pos):
         tbl[b, p // ps + 1:] = 0
     g = torch.Generator(dev).manual_seed(seed)
@@ -251,26 +295,49 @@ def _paged_state(dev, G, hd, qdt, pdt, seed=0, B=8, KV=8, ps=16, NP=64):
             rn(P, ps, KV, hd).to(pdt), rn(P, ps, KV, hd).to(pdt),
             torch.tensor(pos, dtype=torch.int32, device=dev),
             torch.tensor(tbl, dtype=torch.int32, device=dev),
-            torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.bool,
+            torch.tensor([b % 4 != 3 for b in range(B)], dtype=torch.bool,
                          device=dev))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,hd,qdt,pdt,window,softcap", [
-    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0),
-    (1, 128, torch.float32, torch.bfloat16, 0, 0.0),
-    (8, 64, torch.float32, torch.bfloat16, 0, 0.0),
-    (2, 64, torch.float32, torch.bfloat16, 100, 0.0),
-    (2, 128, torch.float32, torch.bfloat16, 0, 30.0),
-    (2, 128, torch.float32, torch.float32, 0, 0.0)])
+@pytest.mark.parametrize("G,hd,qdt,pdt,window,softcap,ps,NP,block_k,pos", [
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 128,
+     PAGED_POS),
+    (1, 128, torch.float32, torch.bfloat16, 0, 0.0, 16, 64, 128, PAGED_POS),
+    (8, 64, torch.float32, torch.bfloat16, 0, 0.0, 16, 64, 128, PAGED_POS),
+    (2, 64, torch.float32, torch.bfloat16, 100, 0.0, 16, 64, 128,
+     PAGED_POS),
+    (2, 128, torch.float32, torch.bfloat16, 0, 30.0, 16, 64, 128,
+     PAGED_POS),
+    (2, 128, torch.float32, torch.float32, 0, 0.0, 16, 64, 128, PAGED_POS),
+    # 16 and 32 k-blocks; C 1008, not a multiple of block_k; block_k 64 and
+    # 256; pages of 48 rows across k-block edges; B 1; every pos 0; f32
+    # pools at hd 256 (a ring of stages)
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 128, 128,
+     [16, 2047, 200, 1500, 900, 1023, 47, 64]),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 256, 128,
+     [4095, 31, 3000, 511, 2048, 1023, 47, 64]),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 63, 128,
+     [1007, 31, 200, 1000, 900, 896, 47, 64]),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 64, PAGED_POS),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 256,
+     PAGED_POS),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 48, 22, 128,
+     [47, 48, 1055, 511, 900, 128, 127, 64]),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 128, [700]),
+    (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 128, [0] * 8),
+    (2, 256, torch.float32, torch.float32, 0, 0.0, 16, 64, 128, PAGED_POS)])
 def test_cuda_paged_decode_attention_matches_plain_and_dense(
-        cuda_device, G, hd, qdt, pdt, window, softcap):
+        cuda_device, G, hd, qdt, pdt, window, softcap, ps, NP, block_k,
+        pos):
     """The fused paged kernel: o within the dense kernel's tolerance of
-    its plain version, pools bitwise outside the null page, and bitwise
-    the dense kernel on the gathered view (block_k 128)."""
-    q, nk, nv, kp, vp, pos, tbl, act = _paged_state(cuda_device, G, hd,
-                                                    qdt, pdt)
-    kw = dict(window=window, softcap=softcap)
+    its plain version, pools bitwise outside the null page, bitwise the
+    dense kernel on the gathered view at the same block_k, and bitwise
+    itself over back-to-back launches and graph replays."""
+    q, nk, nv, kp, vp, pos, tbl, act = _paged_state(
+        cuda_device, G, hd, qdt, pdt, ps=ps, NP=NP, pos=pos)
+    B = pos.numel()
+    kw = dict(window=window, softcap=softcap, block_k=block_k)
     kk, kv, pk, pv = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     before = ops.LAUNCHES["paged_decode_attention"]
     o, k2, _ = ops.paged_decode_attention(q, nk, nv, kk, kv, pos, tbl, act,
@@ -286,12 +353,17 @@ def test_cuda_paged_decode_attention_matches_plain_and_dense(
                                    atol=BF16_ATOL)
     assert torch.equal(_bits(kk[1:]), _bits(pk[1:]))
     assert torch.equal(_bits(kv[1:]), _bits(pv[1:]))
-    P, ps, KV, _ = kp.shape
+    P, _, KV, _ = kp.shape
     ridx = (tbl.long()[:, :, None] * ps
-            + torch.arange(ps, device=cuda_device)).reshape(8, -1)
-    od = ops.decode_attention(q, kk.view(P * ps, KV, hd)[ridx],
-                              kv.view(P * ps, KV, hd)[ridx], pos, **kw)
+            + torch.arange(ps, device=cuda_device)).reshape(B, -1)
+    ck, cv = kk.view(P * ps, KV, hd)[ridx], kv.view(P * ps, KV, hd)[ridx]
+    od = ops.decode_attention(q, ck, cv, pos, **kw)
     assert torch.equal(_bits(o), _bits(od))
+    _same_bits_over_launches_and_replays(
+        lambda: ops.paged_decode_attention(q, nk, nv, kk, kv, pos, tbl, act,
+                                           **kw)[0], o)
+    _same_bits_over_launches_and_replays(
+        lambda: ops.decode_attention(q, ck, cv, pos, **kw), o)
 
 
 @pytest.mark.cuda

@@ -120,6 +120,42 @@ def test_decode_attention_dispatch():
     assert dict(ops.LAUNCHES) == before     # nothing launched on the CPU
 
 
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 10])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_workspace_sizes(G, hd):
+    """A k-block partial holds G x hd sums and G maxima and denominators
+    in 16-byte units; at G = 10 it is exactly the per-head layout of the
+    tensor-core kernel's merge, which shares the workspace."""
+    pf = da.partial_floats(G, hd)
+    assert pf % 4 == 0 and G * (hd + 2) <= pf < G * (hd + 2) + 4
+    if G == 10:
+        assert pf == G * (hd + 2)
+    # one partial per (slot, kv head, k-block of min(block_k, C) rows)
+    assert da.workspace_floats(8, 8, 2048, G, hd, 128) == 8 * 8 * 16 * pf
+    assert da.workspace_floats(3, 2, 1000, G, hd, 128) == 3 * 2 * 8 * pf
+    assert da.workspace_floats(1, 1, 100, G, hd, 128) == pf
+
+
+def test_arrival_counters_zeroed_once_and_reused():
+    """One int32 counter per (slot, kv head), zeroed at first use only
+    (the kernels leave them zero), reused by later calls and grown when a
+    call needs more."""
+    key = ("test_kernel", "cpu")
+    da._COUNTERS.pop(key, None)
+    try:
+        c = da.arrival_counters("test_kernel", "cpu", 64)
+        assert c.dtype == torch.int32 and c.numel() >= 64
+        assert not c.any()
+        c[0] = 7                   # not re-zeroed: the kernel's job
+        assert da.arrival_counters("test_kernel", torch.device("cpu"),
+                                   8 * 8) is c
+        big = da.arrival_counters("test_kernel", "cpu", c.numel() + 1)
+        assert big is not c and big.numel() > c.numel() and not big.any()
+        assert da.arrival_counters("test_kernel", "cpu", 64) is big
+    finally:
+        da._COUNTERS.pop(key, None)
+
+
 # ----------------------------------------------------------- scatter swap
 
 
