@@ -80,12 +80,15 @@ What it does, failing (non-zero exit, no result line) on any error:
 13. the paged decode step against the dense one at 300-900-row
    contexts in alternating segments, and a ``torch.profiler`` window of
    the paged decode step, beside phase 5's dense one;
-14. the hybrid RG-LRU family (the port's slice 4): the RG-LRU scan
-   kernel against its plain version, bitwise (y and h_last, with and
-   without h0, forward and reversed, at [8, 256, 2560], [2, 96, 192] and
-   [1, 33, 130]), the backward through ``ops.rglru_scan`` (da, db, dh0
-   bitwise), and its forward and reversed times beside the bound and the
-   plain version;
+14. the hybrid RG-LRU family (the port's slice 4; the chunked scan of
+   slice 8): the forward scan kernel and the backward kernel (the
+   reversed scan with the VJP's elementwise passes taken in) against
+   their plain versions, bitwise (y and h_last; da, db and dh0; with and
+   without h0, at [8, 256, 2560], [2, 96, 192], [1, 33, 130], past one
+   group of 8 chunks at [2, 291, 200], and at B * W < 32), the backward
+   through ``ops.rglru_scan`` (da, db, dh0 bitwise), and the forward's
+   and the whole backward's times beside their bounds and the plain
+   versions;
 15. the decode kernel at ``recurrentgemma-2b``'s local layers (MQA, 10
    query heads, head_dim 256, a ring over the 2048-token window; the
    tensor-core kernel over the bf16 cache) against its plain version with
@@ -101,7 +104,8 @@ What it does, failing (non-zero exit, no result line) on any error:
    scans per step, plus one recompute and one backward scan per
    recurrent block the gradient passes through), the masked-Adam
    launches one per selected leaf per non-refresh step; step times and
-   peak memory; a ``torch.profiler`` window of 2 more steps; full
+   peak memory; a ``torch.profiler`` window of 2 more steps (with the
+   scan kernels' share of device busy); full
    ``adam``'s peak at one step (BlockLLM must stay below it); 6 reduced
    steps on the card against the CPU;
 17. checkpoint -> crash -> resume -> export -> serve at full width and 5
@@ -168,7 +172,8 @@ SERVE_KERNELS = ("decode_attention", "scatter_swap")
 RG_ARCH = "recurrentgemma-2b"
 RG_TRAIN_ARGV = ["--arch", RG_ARCH, "--reduce", "0", "--optimizer",
                  "blockllm", "--batch", "8", "--seq", "256", "--steps", "8"]
-RG_SCAN_SHAPES = ((8, 256, 2560), (2, 96, 192), (1, 33, 130))
+RG_SCAN_SHAPES = ((8, 256, 2560), (2, 96, 192), (1, 33, 130), (2, 291, 200),
+                  (1, 40, 7))
 PAGED_ARGV = ["--arch", ARCH, "--reduce", "0", "--attn-impl", "kernel",
               "--demo-adapters", "2", "--slots", "8", "--max-seq", "1024",
               "--requests", "16", "--new-tokens", "32", "--paged",
@@ -229,6 +234,12 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_time_ms(fn, iters: int = 50, runs: int = 5) -> float:
+    """The median of ``runs`` runs of ``cuda_time_ms(fn, iters)``: a
+    kernel of tens of microseconds varies by 15% from run to run."""
+    return sorted(cuda_time_ms(fn, iters) for _ in range(runs))[runs // 2]
+
+
 def graph_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     """Mean device milliseconds per call: ``iters`` calls captured in one
     CUDA graph and replayed, so host launch overhead is not counted."""
@@ -276,23 +287,30 @@ def replay_bitwise(torch, fn, ref) -> bool:
 
 
 def profile_records(torch, fn, calls: int = 20):
-    """{kernel: (launches per call, device us per launch)} of ``fn(i)``
-    over ``calls`` warm calls under ``torch.profiler``."""
+    """({kernel: (launches per call, device us per launch)}, sessions
+    run) of ``fn(i)`` over ``calls`` warm calls under ``torch.profiler``.
+    The tracer can lose the records of kernels launched from the port's
+    libraries (all of a session's, once in some runs): a session that
+    recorded no device kernel is run again, up to 3 sessions."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
     rec = {}                 # by kernel name, template arguments dropped
-    for e in prof.key_averages():
-        if e.device_time_total > 0:
-            name = e.key.split("(")[0].split("::")[-1].split("<")[0]
-            n, t = rec.get(name, (0, 0.0))
-            rec[name] = (n + e.count, t + e.device_time_total)
-    return {k: (n / calls, t / n) for k, (n, t) in rec.items()}
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                name = e.key.split("(")[0].split("::")[-1].split("<")[0]
+                n, t = rec.get(name, (0, 0.0))
+                rec[name] = (n + e.count, t + e.device_time_total)
+        if rec:
+            break
+        print(f"  profiler session {session + 1} recorded no device kernel")
+    return {k: (n / calls, t / n) for k, (n, t) in rec.items()}, session + 1
 
 
 def one_launch_profile(torch, name, shape, fn, calls: int = 20):
@@ -301,11 +319,12 @@ def one_launch_profile(torch, name, shape, fn, calls: int = 20):
     miss some launches, show no second kernel)."""
     from repro_torch.kernels import build
     before = build.LAUNCHES[name]
-    rec = profile_records(torch, fn, calls)
-    launched = build.LAUNCHES[name] - before - 3     # 3 warm-up calls
+    rec, sessions = profile_records(torch, fn, calls)
+    # 3 warm-up calls, then calls a session
+    launched = (build.LAUNCHES[name] - before - 3) / sessions
     split = ", ".join(f"{k} x{n:g} {us:.2f} us" for k, (n, us) in rec.items())
-    print(f"{name} profile [{shape}], per call: {split}; {launched} wrapper "
-          f"launches for {calls} calls")
+    print(f"{name} profile [{shape}], per call: {split}; {launched:g} "
+          f"wrapper launches for {calls} calls")
     if len(rec) != 1 or launched != calls or next(iter(rec.values()))[0] > 1:
         raise AssertionError(f"{name}: {len(rec)} kernels, {launched} "
                              f"launches for {calls} calls, not one a call")
@@ -1457,6 +1476,11 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH,
             groups["other"] += t
     print("  device ms/step by kind: " + ", ".join(
         f"{k} {v:.2f}" for k, v in groups.items()))
+    if groups["rglru scan"]:
+        # the forward and backward kernels; the backward's elementwise
+        # passes run inside its kernel
+        print(f"  rglru scan kernels {groups['rglru scan']:.3f} ms/step "
+              f"({groups['rglru scan'] / max(busy, 1e-9):.1%} of busy)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
               f"{e.count // n:5d} calls/step  {e.key[:70]}")
@@ -1688,27 +1712,39 @@ def same_bits(torch, x, y) -> bool:
 
 
 def check_rglru_scan(torch, rs, ops, results):
-    """The scan kernel against its plain version, bitwise (y, h_last; with
-    and without h0; forward and reversed), the backward through
-    ``ops.rglru_scan`` (da, db, dh0 bitwise), and its times at the main
-    path's shape beside the bound and the plain version."""
+    """The forward scan kernel and the backward kernel (the reversed scan
+    with the VJP's passes taken in) against their plain versions, bitwise
+    (y, h_last; da, db, dh0; with and without h0), the backward through
+    ``ops.rglru_scan`` (da, db, dh0 bitwise), and the times at the main
+    path's shape of the forward and of the backward as a whole (the one
+    kernel the op's backward runs) beside their bounds and the plain
+    versions."""
     for B, S, W in RG_SCAN_SHAPES:
         for with_h0 in (True, False):
-            for reverse in (False, True):
-                a, b, h0 = scan_inputs(torch, B, S, W, 0)
-                h0 = h0 if with_h0 else None
-                ky, kh = rs.rglru_scan_cuda(a, b, h0, reverse=reverse)
-                py, ph = rs.rglru_scan_plain(a, b, h0, reverse=reverse)
-                torch.cuda.synchronize()
-                ok = (same_bits(torch, ky, py) and same_bits(torch, kh, ph)
-                      and bool(torch.isfinite(ky).all()))
-                print(f"rglru_scan [{B}, {S}, {W}] h0 "
-                      f"{'given' if with_h0 else 'none'}"
-                      f"{' reversed' if reverse else ''}: y and h_last "
-                      f"bitwise vs plain {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError("rglru_scan disagrees with its "
-                                         "plain version")
+            a, b, h0 = scan_inputs(torch, B, S, W, 0)
+            h0 = h0 if with_h0 else None
+            dh_last = torch.randn(B, W, device="cuda")
+            ky, kh = rs.rglru_scan_cuda(a, b, h0)
+            py, ph = rs.rglru_scan_plain(a, b, h0)
+            kg = rs.rglru_scan_bwd_cuda(a, py, h0, b, dh_last,
+                                        need_dh0=with_h0)
+            pg = rs.rglru_scan_bwd_plain(a, py, h0, b, dh_last,
+                                         need_dh0=with_h0)
+            torch.cuda.synchronize()
+            ok = (same_bits(torch, ky, py) and same_bits(torch, kh, ph)
+                  and bool(torch.isfinite(ky).all()))
+            bwd_ok = ((kg[2] is None) == (pg[2] is None) == (not with_h0)
+                      and all(same_bits(torch, k, p)
+                              for k, p in zip(kg, pg) if p is not None)
+                      and bool(torch.isfinite(kg[0]).all()))
+            print(f"rglru_scan [{B}, {S}, {W}] h0 "
+                  f"{'given' if with_h0 else 'none'}: y and h_last bitwise "
+                  f"vs plain {'ok' if ok else 'FAIL'}; backward kernel da, "
+                  f"db{', dh0' if with_h0 else ''} bitwise vs plain "
+                  f"{'ok' if bwd_ok else 'FAIL'}")
+            if not (ok and bwd_ok):
+                raise AssertionError("rglru_scan disagrees with its "
+                                     "plain version")
         ins = scan_inputs(torch, B, S, W, 1)
         outs = {}
         for mode in ("kernel", "plain"):
@@ -1728,27 +1764,41 @@ def check_rglru_scan(torch, rs, ops, results):
     # times at the main path's shape; two input copies (126 MB) > L2
     B, S, W = RG_SCAN_SHAPES[0]
     ins = [scan_inputs(torch, B, S, W, 2 + i) for i in range(2)]
-    zero = torch.zeros(B, W, device="cuda")
-    ms = cuda_time_ms(lambda i: rs.rglru_scan_cuda(
-        ins[i % 2][0], ins[i % 2][1], zero), 50)
-    bwd_ms = cuda_time_ms(lambda i: rs.rglru_scan_cuda(
-        ins[i % 2][0], ins[i % 2][1], None, reverse=True), 50)
-    plain_ms = cuda_time_ms(lambda i: rs.rglru_scan_plain(
-        ins[i % 2][0], ins[i % 2][1], zero), 5)
-    nbytes = rs.scan_bytes(B, S, W)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * B * S * W / F32_FLOPS * 1e3
-    results["rglru_scan"] = dict(
-        max_abs_err=0.0, ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None)
-    print(f"rglru_scan time [{B}, {S}, {W}] f32: forward {ms:.4f} ms, "
-          f"reversed (backward) {bwd_ms:.4f} ms, bound "
-          f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB), plain "
-          f"{plain_ms:.3f} ms; no one PyTorch call computes a linear "
+    ys = [rs.rglru_scan_cuda(*x)[0] for x in ins]
+    dh_last = torch.randn(B, W, device="cuda")
+
+    def bwd(fn, i):
+        a, dy, h0 = ins[i % 2]
+        return fn(a, ys[i % 2], h0, dy, dh_last)
+    ms = median_time_ms(lambda i: rs.rglru_scan_cuda(*ins[i % 2]))
+    bwd_ms = median_time_ms(lambda i: bwd(rs.rglru_scan_bwd_cuda, i))
+    plain_ms = cuda_time_ms(lambda i: rs.rglru_scan_plain(*ins[i % 2]), 5)
+    bwd_plain_ms = cuda_time_ms(lambda i: bwd(rs.rglru_scan_bwd_plain, i), 5)
+    bounds = {}
+    for name, nbytes, nops in (
+            ("rglru_scan", rs.scan_bytes(B, S, W), 2 * B * S * W),
+            ("rglru_scan_bwd", rs.scan_bwd_bytes(B, S, W), 3 * B * S * W)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_FLOPS * 1e3
+        bounds[name] = (max(t_bytes, t_ops),
+                        "bytes" if t_bytes >= t_ops else "operations",
+                        nbytes)
+    for name, t, plain in (("rglru_scan", ms, plain_ms),
+                           ("rglru_scan_bwd", bwd_ms, bwd_plain_ms)):
+        bound, by, _ = bounds[name]
+        results[name] = dict(max_abs_err=0.0, ms=t, plain_ms=plain,
+                             bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"rglru_scan time [{B}, {S}, {W}] f32 (chunk {rs.SCAN_CHUNK}): "
+          f"forward {ms:.4f} ms vs bound {bounds['rglru_scan'][0]:.4f} ms "
+          f"({bounds['rglru_scan'][2] / 1e6:.1f} MB, "
+          f"{bounds['rglru_scan'][0] / ms:.0%} of it), plain "
+          f"{plain_ms:.3f} ms; backward as a whole (one kernel) "
+          f"{bwd_ms:.4f} ms vs bound {bounds['rglru_scan_bwd'][0]:.4f} ms "
+          f"({bounds['rglru_scan_bwd'][2] / 1e6:.1f} MB, "
+          f"{bounds['rglru_scan_bwd'][0] / bwd_ms:.0%} of it), plain "
+          f"{bwd_plain_ms:.3f} ms; no one PyTorch call computes a linear "
           f"recurrence")
-    del ins
+    del ins, ys
     torch.cuda.empty_cache()
 
 
@@ -2378,6 +2428,15 @@ def main() -> int:
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 if "mma" in want and spill and int(spill.group(1)):
                     raise AssertionError(f"{short} spills: {line}")
+        if name == "rglru_scan":
+            # nor the scan kernels, forward and backward
+            rows, _ = ptxas_summary(info["log"], "rglru_scan_kernel")
+            if sum("Used" in l for _, l in rows) != 2:
+                raise AssertionError(f"ptxas reported {len(rows)} lines for "
+                                     f"the 2 scan kernels")
+            for entry, line in rows:
+                if re.search(r"[1-9]\d* bytes spill stores", line):
+                    raise AssertionError(f"{entry} spills: {line}")
         if name in ("decode_attention", "paged_decode_attention"):
             # nor any instantiation of the shared decode body
             rows, _ = ptxas_summary(info["log"], "decode_attention_kernel")
@@ -2497,8 +2556,8 @@ def main() -> int:
                 "paged_decode_attention": p_launches["paged_decode_attention"],
                 "masked_adam_q8": t_launches["masked_adam_q8"],
                 "masked_adam": f32_launches["masked_adam"],
-                "rglru_scan": (rg_launches["rglru_scan"]
-                               + rg_launches["rglru_scan_bwd"]),
+                "rglru_scan": rg_launches["rglru_scan"],
+                "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
     path_of = {"decode_attention": "serving main path",
                "scatter_swap": "serving main path",
@@ -2506,8 +2565,9 @@ def main() -> int:
                "masked_adam_q8": "training main path (blockllm+q8)",
                "masked_adam": "blockllm f32 run (fused_update='kernel')",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
-                             f"{rg_launches['rglru_scan']} + backward "
-                             f"{rg_launches['rglru_scan_bwd']})",
+                             f"and remat recompute)",
+               "rglru_scan_bwd": f"{RG_ARCH} training main path "
+                                 f"(backward)",
                "flash_attention": "flash_attention op (forward kernel, "
                                   "chunked backward)"}
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2517,6 +2577,7 @@ def main() -> int:
                "masked_adam": csrc + "masked_adam.cu",
                "masked_adam_q8": csrc + "masked_adam.cu",
                "rglru_scan": csrc + "rglru_scan.cu",
+               "rglru_scan_bwd": csrc + "rglru_scan.cu",
                "flash_attention": csrc + "flash_attention.cu"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:186",
                 "scatter_swap": "src/repro/kernels/scatter_apply.py:81",
@@ -2525,10 +2586,13 @@ def main() -> int:
                 "masked_adam": "src/repro/kernels/masked_adam.py:152",
                 "masked_adam_q8": "src/repro/kernels/masked_adam.py:117",
                 "rglru_scan": "src/repro/kernels/rglru_scan.py:67",
+                # the same kernel, reversed, in JAX's backward (ops.py:499)
+                "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:67",
                 "flash_attention": "src/repro/kernels/flash_attention.py:101"}
     kernels = []
     for name in ("decode_attention", "scatter_swap", "paged_decode_attention",
                  "masked_adam", "masked_adam_q8", "rglru_scan",
+                 "rglru_scan_bwd",
                  "flash_attention"):
         r = results[name]
         kernels.append({"name": name, "route": "cuda",

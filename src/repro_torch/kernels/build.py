@@ -35,8 +35,8 @@ SOURCES = {"decode_attention": "decode_attention.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# one counter per kernel; masked_adam.cu holds two, and the RG-LRU scan
-# counts its forward and its reversed (backward) launches apart
+# one counter per kernel; masked_adam.cu holds two, and rglru_scan.cu its
+# forward and its backward (reversed) kernel
 KERNELS = ("decode_attention", "paged_decode_attention", "scatter_swap",
            "masked_adam", "masked_adam_q8", "rglru_scan", "rglru_scan_bwd",
            "flash_attention")
@@ -83,7 +83,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "scatter_swap":
         fns = [(lib.scatter_swap_launch, [p, p, p, p, i, n, p])]
     elif name == "rglru_scan":
-        fns = [(lib.rglru_scan_launch, [p] * 5 + [i] * 4 + [p])]
+        fns = [(lib.rglru_scan_launch, [p] * 5 + [i] * 4 + [p]),
+               (lib.rglru_scan_bwd_launch, [p] * 8 + [i] * 4 + [p])]
     elif name == "flash_attention":
         fns = [(lib.flash_attention_launch, [p] * 4 + [i] * 9 + [f, p])]
     else:

@@ -290,11 +290,11 @@ def masked_adam_q8_tree(params, grads, mu_q, mu_scale, nu_q, nu_scale,
 
 
 class _RGLRUScan(torch.autograd.Function):
-    """``h_t = a_t * h_{t-1} + b_t`` with the reversed scan as its
-    backward (``repro.kernels.ops._rg_fwd`` / ``_rg_bwd``):
-    lam_t = a_{t+1} * lam_{t+1} + dy_t (dy[:, -1] + dh_last at the end),
-    da = lam * h_{t-1}, db = lam, dh0 = lam_0 * a_0.  Both directions run
-    the kernel (``kernel=True``) or its plain version."""
+    """``h_t = a_t * h_{t-1} + b_t`` with its VJP as one reversed scan
+    (``repro.kernels.ops._rg_fwd`` / ``_rg_bwd``): lam_t = a_{t+1} *
+    lam_{t+1} + dy_t (dy[:, -1] + dh_last at the end), da = lam * h_{t-1},
+    db = lam, dh0 = lam_0 * a_0, all in one kernel.  Both directions run
+    the kernels (``kernel=True``) or their plain versions."""
 
     @staticmethod
     def forward(ctx, a, b, h0, kernel):
@@ -307,15 +307,10 @@ class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_last):
         a, y, h0 = ctx.saved_tensors
-        B, S, W = a.shape
-        fn = rs.rglru_scan_cuda if ctx.kernel else rs.rglru_scan_plain
-        a_next = torch.cat([a[:, 1:], a.new_zeros(B, 1, W)], dim=1)
-        dy = dy.clone(memory_format=torch.contiguous_format)
-        dy[:, -1] += dh_last
-        lam, _ = fn(a_next, dy, None, reverse=True)
-        y_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
-        dh0 = lam[:, 0] * a[:, 0] if ctx.needs_input_grad[2] else None
-        return lam * y_prev, lam, dh0, None
+        fn = rs.rglru_scan_bwd_cuda if ctx.kernel else rs.rglru_scan_bwd_plain
+        da, db, dh0 = fn(a, y, h0, dy.contiguous(), dh_last.contiguous(),
+                         need_dh0=ctx.needs_input_grad[2])
+        return da, db, dh0, None
 
 
 def rglru_scan(a, b, h0, *, mode: str = "auto"):

@@ -429,26 +429,66 @@ def _scan_inputs(device, B, S, W, seed):
     return a, b, h0
 
 
+# the main path's shape; ragged S and W; S past one group of 8 chunks of
+# SCAN_CHUNK = 16 steps (291 and 1000 steps: 3 and 8 groups); B * W < 32
+SCAN_SHAPES = [(8, 256, 2560), (2, 96, 192), (1, 33, 130), (2, 291, 200),
+               (1, 1000, 64), (1, 40, 7), (2, 9, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,W", [(8, 256, 2560), (2, 96, 192),
-                                   (1, 33, 130)])
+@pytest.mark.parametrize("B,S,W", SCAN_SHAPES)
 @pytest.mark.parametrize("with_h0", [True, False])
-@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_cuda_rglru_scan_bitwise_equals_plain(cuda_device, B, S, W,
-                                              with_h0, reverse):
-    """The kernel rounds the product and the sum on their own (no FMA),
-    as its plain version: y and h_last bitwise, forward and reversed."""
+                                              with_h0, direction):
+    """The kernels round every product and sum on their own (no FMA) over
+    the same chunk grid as their plain versions: bitwise equal, over 3
+    back-to-back launches, each counted once.  The forward kernel gives
+    y and h_last; the backward kernel, the reversed scan with the VJP's
+    products, gives da, db, and dh0 when h0 is given."""
     from repro_torch.kernels import rglru_scan as rs
     a, b, h0 = _scan_inputs(cuda_device, B, S, W, 0)
     h0 = h0 if with_h0 else None
-    before = ops.LAUNCHES["rglru_scan_bwd" if reverse else "rglru_scan"]
-    ky, kh = rs.rglru_scan_cuda(a, b, h0, reverse=reverse)
-    py, ph = rs.rglru_scan_plain(a, b, h0, reverse=reverse)
+    backward = direction == "backward"
+    name = "rglru_scan_bwd" if backward else "rglru_scan"
+    if backward:
+        y, _ = rs.rglru_scan_plain(a, b, h0)
+        dh_last = torch.randn(B, W, device=cuda_device)
+
+        def kernel():
+            return rs.rglru_scan_bwd_cuda(a, y, h0, b, dh_last,
+                                          need_dh0=with_h0)
+        plain = rs.rglru_scan_bwd_plain(a, y, h0, b, dh_last,
+                                        need_dh0=with_h0)
+    else:
+        def kernel():
+            return rs.rglru_scan_cuda(a, b, h0)
+        plain = rs.rglru_scan_plain(a, b, h0)
+    for _ in range(3):
+        before = ops.LAUNCHES[name]
+        outs = kernel()
+        assert ops.LAUNCHES[name] == before + 1
+        torch.cuda.synchronize()
+        assert len(outs) == len(plain)
+        if backward:
+            assert (outs[2] is None) == (plain[2] is None) == (not with_h0)
+        for k, p in zip(outs, plain):
+            if p is not None:
+                assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 291])
+def test_cuda_rglru_scan_keeps_negative_zero(cuda_device, S):
+    """A run of -0 states stays -0 across chunks (H starts from -0; the
+    padding is a = 1, b = -0), as in the sequential scan."""
+    from repro_torch.kernels import rglru_scan as rs
+    a = torch.full((2, S, 40), 0.9, device=cuda_device)
+    b = torch.full_like(a, -0.0)
+    h0 = torch.full((2, 40), -0.0, device=cuda_device)
+    y, h = rs.rglru_scan_cuda(a, b, h0)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["rglru_scan_bwd" if reverse else
-                        "rglru_scan"] == before + 1
-    assert torch.equal(_bits(ky), _bits(py))
-    assert torch.equal(_bits(kh), _bits(ph))
+    assert torch.signbit(y).all() and torch.signbit(h).all()
 
 
 @pytest.mark.cuda
@@ -476,12 +516,24 @@ def test_cuda_rglru_scan_op_grads_bitwise(cuda_device, B, S, W):
 def test_cuda_rglru_scan_rejects_what_it_does_not_take(cuda_device):
     from repro_torch.kernels import rglru_scan as rs
     a, b, h0 = _scan_inputs(cuda_device, 2, 8, 32, 2)
+    dh = torch.zeros_like(h0)
+    before = dict(ops.LAUNCHES)
     with pytest.raises(ValueError, match="f32"):
         rs.rglru_scan_cuda(a.bfloat16(), b.bfloat16(), None)
     with pytest.raises(ValueError, match="contiguous"):
         rs.rglru_scan_cuda(a.transpose(1, 2), b.transpose(1, 2), None)
     with pytest.raises(ValueError, match="h0"):
         rs.rglru_scan_cuda(a, b, h0[:, :16])
+    with pytest.raises(ValueError, match="CUDA"):
+        rs.rglru_scan_cuda(a, b.cpu(), None)
+    with pytest.raises(ValueError, match="dh_last"):
+        rs.rglru_scan_bwd_cuda(a, b, h0, b, dh[:, :16])
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rglru_scan_bwd_cuda(a, b, h0, b.transpose(1, 2).contiguous()
+                               .transpose(1, 2), dh)
+    with pytest.raises(ValueError, match="f32"):
+        rs.rglru_scan_bwd_cuda(a, b, h0.double(), b, dh)
+    assert ops.LAUNCHES == before
 
 
 G10_RING_POS = [0, 100, 2047, 2048, 2500, 3000, 4095, 9000]

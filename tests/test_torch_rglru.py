@@ -12,8 +12,14 @@ Tolerances, and why:
   ``a_t * h + b_t`` into one fused multiply-add (both JAX results equal
   an f64-emulated FMA bit for bit), while the port rounds the product
   and the sum on their own, as its CUDA kernel does (measured: at most
-  1.8e-7 apart, which near zero is up to 20 210 ulp).  The port's plain
-  version and its own oracle are bitwise equal;
+  1.8e-7 apart, which near zero is up to 20 210 ulp), and past
+  ``SCAN_CHUNK`` steps the port's scan is a chunked one (carries
+  P_k * c_k + H_k between chunks), which rounds otherwise again.  The
+  port's plain version equals its own sequential oracle bitwise up to
+  ``SCAN_CHUNK`` steps, and within atol 1e-6 past it;
+- the plain backward (``rglru_scan_bwd_plain``) bitwise the composite
+  formula it replaces (shifted copies, the reversed scan, the product),
+  and against JAX's custom VJP at atol 1e-4;
 - gradients through ``ops.rglru_scan`` against JAX's custom VJP
   (``ops.rglru_scan(a, b, h0, True)``): atol 1e-4, the tolerance of
   ``tests/test_kernels.py::test_rglru_kernel_grad`` (in practice equal
@@ -63,11 +69,15 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.int32)
 
 
+L = rs.SCAN_CHUNK
+
+
 @pytest.mark.parametrize("B,S,W", [(1, 64, 128), (2, 96, 192), (1, 33, 130)])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_plain_scan_matches_interpret_kernel(B, S, W, with_h0):
     """At ``tests/test_kernels.py``'s shapes, with and without h0 (the
-    JAX kernel takes zeros for none)."""
+    JAX kernel takes zeros for none), all past one chunk: within atol 1e-6
+    of it and of the port's own sequential oracle."""
     a, b, h0 = _scan_inputs(B, S, W)
     if not with_h0:
         h0 = np.zeros_like(h0)
@@ -83,10 +93,71 @@ def test_plain_scan_matches_interpret_kernel(B, S, W, with_h0):
     ry, rh = rglru_ref(torch.from_numpy(a), torch.from_numpy(b),
                        torch.from_numpy(h0))
     jry, jrh = jrglru_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
-    np.testing.assert_array_equal(_bits(ry.numpy()), _bits(ty.numpy()))
-    np.testing.assert_array_equal(_bits(rh.numpy()), _bits(th.numpy()))
+    np.testing.assert_allclose(ty.numpy(), ry.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(th.numpy(), rh.numpy(), rtol=0, atol=1e-6)
     np.testing.assert_allclose(ry.numpy(), np.asarray(jry), rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("S", [1, 7, L])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_plain_scan_up_to_one_chunk_is_sequential_bitwise(S, with_h0):
+    """Up to ``SCAN_CHUNK`` steps the chunked scan is the sequential one:
+    bitwise the port's oracle ``rglru_ref``, within 1e-6 of JAX's."""
+    a, b, h0 = _scan_inputs(2, S, 40, seed=11)
+    if not with_h0:
+        h0 = np.zeros_like(h0)
+    ty, th = rs.rglru_scan_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                 torch.from_numpy(h0) if with_h0 else None)
+    ry, rh = rglru_ref(torch.from_numpy(a), torch.from_numpy(b),
+                       torch.from_numpy(h0))
+    np.testing.assert_array_equal(_bits(ty.numpy()), _bits(ry.numpy()))
+    np.testing.assert_array_equal(_bits(th.numpy()), _bits(rh.numpy()))
+    jry, _ = jrglru_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jry), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("S", [L + 1, 3 * L + 5, 9 * L + 3])
+@pytest.mark.parametrize("W", [40, 70])
+def test_chunked_scan_matches_jax(S, W):
+    """Past one chunk (a ragged last chunk; 9L + 3 steps run two groups
+    of 8 chunks in the kernel) and at widths that are not a multiple of
+    32: against the TPU kernel in interpret mode and JAX's ``rglru_ref``,
+    and against the port's sequential oracle, at atol 1e-6."""
+    a, b, h0 = _scan_inputs(2, S, W, seed=S + W)
+    ty, th = rs.rglru_scan_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                 torch.from_numpy(h0))
+    jy, jh = rglru_scan_kernel(jnp.asarray(a), jnp.asarray(b),
+                               jnp.asarray(h0), block_t=32, block_w=64,
+                               interpret=True)
+    jry, jrh = jrglru_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
+    ry, rh = rglru_ref(torch.from_numpy(a), torch.from_numpy(b),
+                       torch.from_numpy(h0))
+    for want_y, want_h in ((jy, jh), (jry, jrh), (ry, rh)):
+        np.testing.assert_allclose(ty.numpy(), np.asarray(want_y), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(th.numpy(), np.asarray(want_h), rtol=0,
+                                   atol=1e-6)
+    assert torch.equal(th, ty[:, -1])
+    assert ty.is_contiguous()     # the kernels take it as it comes
+
+
+@pytest.mark.parametrize("S", [5, 3 * L + 5])
+def test_negative_zero_keeps_its_bits(S):
+    """A run of -0 states stays -0 through the chunk carries and the
+    identity padding (a = 1, b = -0) of a ragged last chunk, as in the
+    sequential oracle."""
+    a = torch.full((2, S, 40), 0.9)
+    b = torch.full_like(a, -0.0)
+    h0 = torch.full((2, 40), -0.0)
+    for reverse in (False, True):
+        y, h = rs.rglru_scan_plain(a, b, h0, reverse=reverse)
+        assert torch.signbit(y).all() and torch.signbit(h).all()
+    ry, rh = rglru_ref(a, b, h0)
+    y, h = rs.rglru_scan_plain(a, b, h0)
+    np.testing.assert_array_equal(_bits(y.numpy()), _bits(ry.numpy()))
+    np.testing.assert_array_equal(_bits(h.numpy()), _bits(rh.numpy()))
 
 
 def test_reversed_scan_equals_flipped_scan_bitwise():
@@ -96,6 +167,60 @@ def test_reversed_scan_equals_flipped_scan_bitwise():
     ry, rh = rs.rglru_scan_plain(a, b, h0, reverse=True)
     fy, fh = rs.rglru_scan_plain(a.flip(1), b.flip(1), h0)
     assert torch.equal(ry, fy.flip(1)) and torch.equal(rh, fh)
+
+
+@pytest.mark.parametrize("S", [L - 3, 3 * L + 5, 9 * L + 3])
+@pytest.mark.parametrize("need_dh0", [True, False])
+def test_bwd_plain_equals_composite_bitwise(S, need_dh0):
+    """``rglru_scan_bwd_plain`` against the composite it stands for, the
+    backward of ``repro.kernels.ops._rg_bwd`` written out: a shifted one
+    step (0 at the end), dy copied with dh_last added at the last step,
+    the reversed scan from zeros, y shifted (h0 first), the products.
+    Its reversed scan counts chunks from t = S - 1: the flipped forward
+    scan of the flipped inputs."""
+    B, W = 2, 40
+    a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(B, S, W, S))
+    rng = np.random.RandomState(S + 1)
+    dy = torch.from_numpy(rng.randn(B, S, W).astype(np.float32))
+    dh_last = torch.from_numpy(rng.randn(B, W).astype(np.float32))
+    y, _ = rs.rglru_scan_plain(a, b, h0)
+    da, db, dh0 = rs.rglru_scan_bwd_plain(a, y, h0, dy, dh_last,
+                                          need_dh0=need_dh0)
+    a_next = torch.cat([a[:, 1:], torch.zeros(B, 1, W)], dim=1)
+    dy2 = dy.clone()
+    dy2[:, -1] = dy2[:, -1] + dh_last
+    lam, _ = rs.rglru_scan_plain(a_next, dy2, None, reverse=True)
+    flam, _ = rs.rglru_scan_plain(a_next.flip(1), dy2.flip(1), None)
+    assert torch.equal(lam, flam.flip(1))
+    y_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+    assert torch.equal(db, lam)
+    assert torch.equal(da, lam * y_prev)
+    if need_dh0:
+        assert torch.equal(dh0, lam[:, 0] * a[:, 0])
+    else:
+        assert dh0 is None
+
+
+@pytest.mark.parametrize("S", [L + 1, 3 * L + 5])
+def test_bwd_plain_matches_jax_vjp(S):
+    """``rglru_scan_bwd_plain`` against JAX's custom VJP around the TPU
+    kernel in interpret mode, given the same cotangents: atol 1e-4."""
+    B, W = 2, 40
+    a, b, h0 = _scan_inputs(B, S, W, seed=S + 2)
+    rng = np.random.RandomState(S + 3)
+    dy = rng.randn(B, S, W).astype(np.float32)
+    dh_last = rng.randn(B, W).astype(np.float32)
+    (jy, _), vjp = jax.vjp(lambda a, b, h0: jops.rglru_scan(a, b, h0, True),
+                           jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0))
+    jg = vjp((jnp.asarray(dy), jnp.asarray(dh_last)))
+    ta, th0 = torch.from_numpy(a), torch.from_numpy(h0)
+    y, _ = rs.rglru_scan_plain(ta, torch.from_numpy(b), th0)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-6)
+    tg = rs.rglru_scan_bwd_plain(ta, y, th0, torch.from_numpy(dy),
+                                 torch.from_numpy(dh_last))
+    for name, g, j in zip(("da", "db", "dh0"), tg, jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-4,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("B,S,W", [(1, 48, 64), (2, 33, 40)])
@@ -122,25 +247,34 @@ def test_scan_op_grads_match_jax_vjp(B, S, W):
 
 
 def test_scan_op_mode_dispatch():
-    """``auto`` on a CPU tensor is the plain version and launches
-    nothing; ``kernel`` on a CPU tensor raises; ``plain`` runs anywhere;
-    the CUDA wrapper refuses CPU tensors."""
-    a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(1, 9, 16))
+    """``auto`` on a CPU tensor is the plain version in both directions
+    and launches nothing; ``kernel`` on a CPU tensor raises; ``plain``
+    runs anywhere; the CUDA wrappers refuse CPU tensors."""
+    a, b, h0 = (torch.from_numpy(x).requires_grad_()
+                for x in _scan_inputs(1, 9, 16))
     ops.reset_launches()
     y, h = ops.rglru_scan(a, b, h0)
     yp, hp = ops.rglru_scan(a, b, h0, mode="plain")
     assert torch.equal(y, yp) and torch.equal(h, hp)
+    g = torch.autograd.grad(y.sum() + h.sum(), (a, b, h0))
+    gp = torch.autograd.grad(yp.sum() + hp.sum(), (a, b, h0))
+    assert all(torch.equal(x, xp) for x, xp in zip(g, gp))
     assert ops.LAUNCHES["rglru_scan"] == ops.LAUNCHES["rglru_scan_bwd"] == 0
+    a, b, h0 = a.detach(), b.detach(), h0.detach()
     with pytest.raises(ValueError, match="CUDA"):
         ops.rglru_scan(a, b, h0, mode="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         rs.rglru_scan_cuda(a, b, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        rs.rglru_scan_bwd_cuda(a, y.detach(), h0, b, h0)
     with pytest.raises(ValueError, match="mode"):
         ops.rglru_scan(a, b, h0, mode="pallas")
 
 
 def test_scan_profiled_bytes():
-    """The profiler hook counts a and b read and y written, as JAX's."""
+    """The profiler hook counts a and b read and y written, as JAX's;
+    the kernels' traffic for the bounds: 12 bytes an element forward,
+    20 backward (a, y, dy read; da, db written)."""
     a, b, h0 = (torch.from_numpy(x) for x in _scan_inputs(2, 8, 32))
     prof = ops.enable_kernel_profiling()
     try:
@@ -151,6 +285,8 @@ def test_scan_profiled_bytes():
     assert rec["op"] == "rglru_scan" and rec["bytes"] == 3 * a.nbytes
     assert rs.scan_bytes(8, 256, 2560) == 4 * (3 * 8 * 256 * 2560
                                                + 2 * 8 * 2560)
+    assert rs.scan_bwd_bytes(8, 256, 2560) == 4 * (5 * 8 * 256 * 2560
+                                                   + 3 * 8 * 2560)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
