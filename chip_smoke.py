@@ -134,6 +134,33 @@ What it does, failing (non-zero exit, no result line) on any error:
    ln(vocab), step times, peak memory, a ``torch.profiler`` window with
    the chunked attention's share, and at 2 layers in f32 the chunked
    and full attention's losses within 1e-5 relative;
+21. Q8 tenants through the device AdapterCache (the port's slice 9), at
+   full width and depth: three demo tenants quantized
+   (``adapters.quantize_delta``), their rows dequantized on the card
+   bitwise equal to the CPU's; the same 24 requests over base + 3
+   tenants served without and with a cache budget of two tenants' device
+   rows (so it evicts), launch counts reset just before each and read
+   just after (decode attention and the swap kernel must launch): streams
+   equal (a gate), ``h2d_bytes`` equal to the q8 payload bytes the cache
+   promoted (a gate), the weights reverted bit-exactly, hits, misses,
+   evictions, captures, d2d bytes, tokens/s and the ms per flip (revert +
+   apply, synchronized) cached and uncached; then ``python -m
+   repro_torch.launch.serve --arch internlm2-1.8b --reduce 0
+   --demo-adapters 2 --cache-bytes <budget>`` (the swap kernel must
+   launch);
+22. the paper's baselines through ``python -m repro_torch.launch.train
+   --arch internlm2-1.8b --reduce 0 --batch 8 --seq 256``: ``galore`` (3
+   steps, the first its SVD refresh, timed apart), ``lora``, ``badam``
+   and ``badam+q8`` (4 steps each), and ``adam+q8`` (2 steps, for its
+   peak), launch counts reset just before each and read just after:
+   finite losses, the first within 1.0 of ln(vocab), none of the
+   baselines' 0.5 or more above it; BAdam's masked-Adam launches equal to
+   steps x the selected block's leaves; ``badam`` and ``badam+q8``
+   reduced by 8 on the card against the CPU (6 steps, a block switch
+   every 2, Adam eps 1e-3, losses within rtol 1e-4); then the peak
+   device memory of all
+   eight trainer cores at one batch (phases 7-8 give BlockLLM's and
+   Adam's), with their memory reports and step p50s;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -1425,7 +1452,7 @@ def train_main_path(torch, np, ops):
     report = out["trainer"].memory_report()
     del out, opt, pairs
     torch.cuda.empty_cache()
-    return launches, peak, report
+    return launches, peak, report, float(np.percentile(rest, 50))
 
 
 def profile_train(torch, core, state, pipe, first, arch=ARCH,
@@ -1491,9 +1518,11 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH,
     return state, dict(wall_ms=wall_ms, busy_ms=busy, **groups)
 
 
-def train_api(torch, np, ops, q8_peak, q8_report):
+def train_api(torch, np, ops, q8_peak, q8_report, q8_p50):
     """blockllm (f32 moments, fused_update="kernel") then full adam, at
-    the main path's width, depth and batch: the memory comparison."""
+    the main path's width, depth and batch: the memory comparison.
+    Returns the f32 run's launches and the three runs' peaks, memory
+    reports and step p50s (phase 22's table)."""
     from repro_torch import trainers
     from repro_torch.configs.base import get_config
     from repro_torch.core.blockllm import BlockLLMConfig
@@ -1556,7 +1585,13 @@ def train_api(torch, np, ops, q8_peak, q8_report):
     for name, rep in (("blockllm+q8", q8_report), ("blockllm", rep_f32),
                       ("adam", rep_adam)):
         print(f"  memory_report {name} (GiB): {gib(rep)}")
-    return launches
+    peaks = {"blockllm+q8": q8_peak, "blockllm": peak_f32, "adam": peak_adam,
+             "reports": {"blockllm+q8": q8_report, "blockllm": rep_f32,
+                         "adam": rep_adam},
+             "p50": {"blockllm+q8": q8_p50,
+                     "blockllm": float(np.percentile(step_ms[1:], 50)),
+                     "adam": float(np.percentile(a_ms[1:], 50))}}
+    return launches, peaks
 
 
 def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
@@ -2361,6 +2396,326 @@ def long_context_train(torch, np, ops):
                 **prof)
 
 
+# --------------------------------------------------------------------- #
+# phases 21-22: Q8 tenants through the device AdapterCache, and the
+# paper's baseline trainers (slice 9)
+# --------------------------------------------------------------------- #
+
+
+def device_nbytes(torch, delta) -> int:
+    """Bytes of a delta once promoted: the rows dequantized to their
+    original dtype, the row indices."""
+    from repro_torch.checkpoint.checkpointer import dtype_of
+    nb = 0
+    for e in delta.entries.values():
+        if e.quantized:
+            n = 1
+            for d in e.row_shape:
+                n *= d
+            nb += n * torch.empty((), dtype=dtype_of(e.row_dtype)) \
+                .element_size()
+        else:
+            nb += e.rows.nbytes
+        nb += e.idx.nbytes if e.idx is not None else 0
+    return nb
+
+
+def flip_ms(torch, srv, tenants, flips: int = 12) -> float:
+    """Mean ms of a flip (revert + apply, synchronized) between
+    ``tenants`` on a drained server; the first two flips warm up."""
+    times = []
+    for i in range(flips + 2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        srv._ensure_adapter(tenants[i % len(tenants)])
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return sum(times[2:]) / flips
+
+
+def q8_cache_serving(torch, np, ops, card):
+    """Phase 21: three q8 demo tenants over one full-width, full-depth
+    ``internlm2-1.8b`` base, served without and with the device
+    AdapterCache (a budget of two tenants, so it evicts); then the
+    launcher with ``--cache-bytes``."""
+    from repro_torch.adapters import InMemoryRegistry, quantize_delta
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_config import SchedConfig, ServeConfig
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+
+    cfg = get_config(ARCH)
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(21),
+        device="cuda")
+    t0 = time.monotonic()
+    fp_reg, ids = serve.make_demo_registry(params, 3)
+    q8 = {a: quantize_delta(fp_reg.get(a)) for a in ids}
+    fp_bytes = {a: fp_reg.get(a).nbytes for a in ids}
+    del fp_reg
+    print(f"q8 tenants ({ARCH}, full width and depth, 3 demo tenants, "
+          f"built and quantized in {time.monotonic() - t0:.1f} s): "
+          + ", ".join(f"{a} {q8[a].nbytes / 2 ** 20:.1f} MiB q8 vs "
+                      f"{fp_bytes[a] / 2 ** 20:.1f} MiB f32 "
+                      f"({sum(e.quantized for e in q8[a].entries.values())}"
+                      f" of {len(q8[a].entries)} entries quantized)"
+                      for a in ids))
+    # 1. the card's dequantization is bitwise the CPU's
+    n_bad, n_el = 0, 0
+    for d in q8.values():
+        for e in d.entries.values():
+            if e.quantized:
+                a = e.materialize_rows("cuda").cpu()
+                b = e.materialize_rows("cpu")
+                n_el += b.numel()
+                n_bad += int((a.view(torch.int32) != b.view(torch.int32))
+                             .sum())
+    print(f"q8 dequantization on the card vs the CPU: {n_bad} of {n_el} "
+          f"elements differ in any bit {'ok' if n_bad == 0 else 'FAIL'}")
+    if n_bad:
+        raise AssertionError("the card's dequantized rows differ from the "
+                             "CPU's")
+    # 2. the same requests uncached and cached
+    dev_nb = sorted((device_nbytes(torch, d) for d in q8.values()),
+                    reverse=True)
+    budget = dev_nb[0] + dev_nb[1] + 4096
+    if budget >= sum(dev_nb):
+        raise AssertionError("the cache budget would hold all three tenants")
+    tenants = [None] + ids
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, 8 + (7 * i) % 33)
+               for i in range(24)]
+    class Counting(InMemoryRegistry):
+        """Adds up the payload bytes handed out through ``get`` (the
+        cache's promotions), each checked to be an int8 payload."""
+        promoted_bytes = 0
+
+        def get(self, adapter_id):
+            d = super().get(adapter_id)
+            if not d.quantized:
+                raise AssertionError(f"{adapter_id}: promoted a payload "
+                                     f"that is not q8")
+            self.promoted_bytes += d.nbytes
+            return d
+
+    legs = {}
+    for leg, cache_bytes in (("uncached", 0), ("cached", budget)):
+        reg = Counting(q8)
+        srv = DecodeServer(cfg, params, ServeConfig(
+            batch_slots=8, max_seq=256, attn_impl="kernel",
+            sched=SchedConfig(steps_per_turn=2, cache_bytes=cache_bytes)),
+            registry=reg)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16,
+                        adapter_id=tenants[i % 4])
+                for i, p in enumerate(prompts)]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(ops.LAUNCHES)
+        tok = sum(len(r.out) for r in reqs)
+        st = srv.stats()
+        promoted = reg.promoted_bytes
+        ms = flip_ms(torch, srv, ids[:2])
+        srv.restore_base()
+        exact = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(_flatten_with_names(srv.params)[1],
+                                    _flatten_with_names(params)[1]))
+        legs[leg] = dict(streams=[r.out for r in reqs], tok_s=tok / wall,
+                         flip_ms=ms, swaps=st["sched"]["swaps"],
+                         cache=st.get("cache"), promoted=promoted,
+                         exact=exact, launches=launches)
+        del srv, reg
+        torch.cuda.empty_cache()
+    c, u = legs["cached"], legs["uncached"]
+    cs = c["cache"]
+    equal = c["streams"] == u["streams"]
+    print(f"q8 cache serving ({ARCH}, 24 requests x 16 tokens over base + "
+          f"3 q8 tenants, 8 slots, 2-step turns; budget "
+          f"{budget / 2 ** 20:.1f} MiB = two tenants' device rows "
+          f"{dev_nb[0] / 2 ** 20:.1f} + {dev_nb[1] / 2 ** 20:.1f} MiB): "
+          f"hits {cs['hits']}, misses {cs['misses']}, evictions "
+          f"{cs['evictions']}, captures {cs['captures']}, h2d_bytes "
+          f"{cs['h2d_bytes']}, d2d_bytes {cs['d2d_bytes']}, hit rate "
+          f"{cs['hit_rate']:.0%}; swaps {c['swaps']} (uncached "
+          f"{u['swaps']}); tokens/s cached {c['tok_s']:.1f}, uncached "
+          f"{u['tok_s']:.1f}; ms per flip (revert + apply, synchronized, "
+          f"12 flips between 2 tenants) cached {c['flip_ms']:.3f}, uncached "
+          f"{u['flip_ms']:.3f} ({card})")
+    print(f"q8 cache serving: launches cached {c['launches']}, uncached "
+          f"{u['launches']}; streams equal to uncached serving: {equal}; "
+          f"h2d_bytes {cs['h2d_bytes']} == q8 payload bytes promoted "
+          f"{c['promoted']}: {cs['h2d_bytes'] == c['promoted']}; weights "
+          f"revert bit-exactly: cached {c['exact']}, uncached {u['exact']}")
+    if not equal:
+        raise AssertionError("cached streams differ from uncached streams")
+    if cs["h2d_bytes"] != c["promoted"] or not c["promoted"]:
+        raise AssertionError("h2d_bytes is not the q8 payload bytes "
+                             "promoted")
+    if cs["evictions"] < 1 or cs["hits"] < 1:
+        raise AssertionError("the cache neither hit nor evicted")
+    if not (c["exact"] and u["exact"]):
+        raise AssertionError("the served weights did not revert exactly")
+    for k in SERVE_KERNELS:
+        if c["launches"][k] == 0 or u["launches"][k] == 0:
+            raise AssertionError(f"{k} did not launch on the cached or the "
+                                 f"uncached leg")
+    del params
+    torch.cuda.empty_cache()
+    # 3. the launcher with the cache
+    argv = ["--arch", ARCH, "--reduce", "0", "--demo-adapters", "2",
+            "--cache-bytes", str(budget)]
+    print(f"cache launcher: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}")
+    ops.reset_launches()
+    srv, reqs = serve.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    cst = srv.stats()["cache"]
+    print(f"cache launcher: {sum(len(r.out) for r in reqs)} tokens, "
+          f"launches {launches}, cache {cst}")
+    if launches["scatter_swap"] == 0 or cst["misses"] == 0:
+        raise AssertionError("the cached launcher did not swap through the "
+                             "kernel")
+    del srv, reqs
+    torch.cuda.empty_cache()
+    return c["launches"]
+
+
+BASELINE_RUNS = (("galore", 3), ("lora", 4), ("badam", 4), ("badam+q8", 4),
+                 ("adam+q8", 2))
+
+
+def badam_reference_small(torch, np):
+    """``badam`` and ``badam+q8`` reduced by 8 (f32), 6 steps with a block
+    switch every 2, on the card (the masked-Adam kernels, no mask, as the
+    factory chooses there) and on the CPU (their plain versions), from
+    the same weights and batches: losses within rtol 1e-4, the same
+    blocks.  Adam eps 1e-3, as in ``reference_small``: with 1e-8 a v
+    code that rounds to 0 beside a non-zero m code steps m_hat / eps
+    (the reference's Q8 divergence, ROADMAP C), so last-bit differences
+    in the gradients move the Q8 losses by 1e-3 (measured on the card,
+    and between the unfused and the fused update on the CPU alone)."""
+    from repro_torch import trainers
+    from repro_torch.adapters import copy_tree
+    from repro_torch.checkpoint.checkpointer import tree_map
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import Adam
+    from repro_torch.trainers.badam import badam_config
+    cfg = reduce_config(get_config(ARCH), 8).replace(dtype="float32")
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cpu").manual_seed(4), device="cpu")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                    global_batch=4, seed=4))
+    for name in ("badam", "badam+q8"):
+        runs = {}
+        for dev, fused in (("cuda", "kernel"), ("cpu", "plain")):
+            tr = trainers.handle(name, cfg, tree_map(
+                lambda a: a.to(dev), copy_tree(params)), device=dev,
+                adam=Adam(lr=1e-3, eps=1e-3), bcfg=badam_config(
+                    2, fused_update=fused))
+            runs[dev] = ([tr.train_step(pipe.batch(s))["loss"]
+                          for s in range(6)], tr.state.meta,
+                         tr.core.bcfg.fused_update)
+        lc, lp = runs["cuda"][0], runs["cpu"][0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        same = all(runs["cuda"][1][k] == runs["cpu"][1][k]
+                   for k in ("stack_idx", "active_leaves", "reselections"))
+        ok = rel <= 1e-4 and same and np.isfinite(lc).all()
+        print(f"small-input reference ({name}, reduced {ARCH} "
+              f"({cfg.num_layers} layers), 6 steps, a block switch every "
+              f"2, eps 1e-3): card (fused_update={runs['cuda'][2]!r}) vs CPU "
+              f"({runs['cpu'][2]!r}) losses max rel diff {rel:.2e} (rtol "
+              f"1e-4), same blocks {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the "
+                                 f"CPU reference")
+
+
+def baselines_train(torch, np, ops, peaks, card):
+    """Phase 22: the baselines (and ``adam+q8``, the last core without a
+    card peak) through the launcher at 8 x 256, full width and depth;
+    then the eight-core peak-memory table."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.launch import train as tlaunch
+    reports = dict(peaks.pop("reports"))
+    p50 = dict(peaks.pop("p50"))
+    for opt, steps in BASELINE_RUNS:
+        argv = ["--arch", ARCH, "--reduce", "0", "--optimizer", opt,
+                "--batch", "8", "--seq", "256", "--steps", str(steps)]
+        print(f"baseline: python -m repro_torch.launch.train "
+              f"{' '.join(argv)}")
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = tlaunch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        losses, step_ms = out["losses"], out["step_ms"]
+        tr = out["trainer"]
+        ln_v = float(np.log(tr.cfg.vocab_size))
+        rest = np.asarray(step_ms[1:])
+        print(f"baseline {opt}: losses {[round(x, 4) for x in losses]} "
+              f"(first - ln V {losses[0] - ln_v:+.3f}); step ms: first "
+              f"{step_ms[0]:.1f}"
+              + (" (the SVD refresh)" if opt == "galore" else "")
+              + f", the other {len(rest)} p50 {np.percentile(rest, 50):.1f}"
+              f" ({[round(float(x), 1) for x in rest]}); {wall:.1f} s wall "
+              f"including init; launches {launches}; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB ({card})")
+        if not (np.isfinite(losses).all() and len(losses) == steps):
+            raise AssertionError(f"{opt}: non-finite or missing loss")
+        if abs(losses[0] - ln_v) > 1.0:
+            raise AssertionError(f"{opt}: first loss {losses[0]:.3f} is not "
+                                 f"near ln(vocab) = {ln_v:.3f}")
+        if opt != "adam+q8" and max(losses) >= ln_v + 0.5:
+            raise AssertionError(f"{opt}: a loss is 0.5 or more above "
+                                 f"ln(vocab)")
+        if opt.startswith("badam"):
+            kernel = "masked_adam_q8" if opt.endswith("q8") else "masked_adam"
+            leaves = len(_flatten_with_names(tr.state.arrays["sel"])[1])
+            want = steps * leaves
+            print(f"baseline {opt}: {kernel} launches {launches.get(kernel)}"
+                  f" = {steps} steps x {leaves} active leaves "
+                  f"({tr.state.meta['stack_idx']}, "
+                  f"{tr.state.meta['active_leaves']}): "
+                  f"{launches.get(kernel) == want}")
+            if launches.get(kernel) != want or tr.reselections != 1:
+                raise AssertionError(f"{opt}: {kernel} launches "
+                                     f"{launches.get(kernel)}, not {want}")
+        peaks[opt] = peak
+        reports[opt] = tr.memory_report()
+        p50[opt] = float(np.percentile(rest, 50))
+        if opt == "galore":
+            p50["galore refresh"] = step_ms[0]
+        del out, tr
+        torch.cuda.empty_cache()
+    badam_reference_small(torch, np)
+    print(f"peak device memory, all eight cores ({ARCH}, full width and "
+          f"depth, batch 8 x 256; {card}):")
+    print("  core          peak GiB   train state GiB   step p50 ms")
+    for name in ("blockllm", "blockllm+q8", "adam", "adam+q8", "galore",
+                 "lora", "badam", "badam+q8"):
+        print(f"  {name:12s}  {peaks[name] / 2 ** 30:8.2f}   "
+              f"{reports[name]['total_train_state'] / 2 ** 30:15.3f}   "
+              f"{p50.get(name, float('nan')):11.1f}")
+    print(f"  (galore's first step, the SVD refresh: "
+          f"{p50['galore refresh']:.1f} ms)")
+    if not peaks["blockllm"] < peaks["adam"]:
+        raise AssertionError("BlockLLM's peak is not below Adam's")
+    return peaks
+
+
 def main() -> int:
     try:
         import torch
@@ -2496,10 +2851,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 7: the training main path through the launcher
-    t_launches, q8_peak, q8_report = train_main_path(torch, np, ops)
+    t_launches, q8_peak, q8_report, q8_p50 = train_main_path(torch, np, ops)
 
     # phase 8: the f32 kernel path and the memory comparison via the API
-    f32_launches = train_api(torch, np, ops, q8_peak, q8_report)
+    f32_launches, peaks = train_api(torch, np, ops, q8_peak, q8_report,
+                                    q8_p50)
 
     # phase 9: checkpoint -> crash -> resume -> export -> serve
     checkpoint_export_serve(torch, np, ops)
@@ -2548,6 +2904,19 @@ def main() -> int:
 
     # phase 20: long-context BlockLLM training through the trainer API
     long_ctx = long_context_train(torch, np, ops)
+
+    # phase 21: three q8 tenants served without and with the device
+    # AdapterCache (streams equal), then the launcher with --cache-bytes
+    t0 = time.monotonic()
+    print(f"phases 1-20: {t0 - t_start:.1f} s")
+    q8_cache_serving(torch, np, ops, card)
+
+    # phase 22: the paper's baselines through the launcher at 8 x 256,
+    # and the eight-core peak-memory table
+    t1 = time.monotonic()
+    print(f"phase 21: {t1 - t0:.1f} s")
+    baselines_train(torch, np, ops, peaks, card)
+    print(f"phase 22: {time.monotonic() - t1:.1f} s")
 
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the

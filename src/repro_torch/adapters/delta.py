@@ -10,8 +10,10 @@ deltas).
 Host-side payloads are CPU tensors (the JAX package uses numpy); the
 on-disk format, the payload checksum and the base fingerprint are
 byte-compatible with the JAX package, so a delta extracted by either
-package applies in the other.  Int8-quantized payloads load, but
-applying one raises until the Q8 codec is ported (ROADMAP queue A).
+package applies in the other.  ``quantize_delta`` stores float rows
+as int8 codec blocks + f32 block scales (``runtime/compression.py``):
+the codes, the scales and the dequantized rows are bitwise the JAX
+package's, and revert of an applied quantized delta stays bit-exact.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.checkpoint import checkpointer as ckpt_lib
 from repro_torch.kernels import ops
+from repro_torch.runtime.compression import dequantize_int8, quantize_int8
 
 Pytree = Any
 
@@ -59,8 +62,13 @@ class DeltaEntry:
     ``idx`` is a host int32 tensor; ``rows`` is a CPU tensor when loaded
     or extracted, and a device tensor in the displaced-rows delta
     ``apply_delta`` returns (revert never round-trips through the host).
-    ``scale`` is set for int8-quantized payloads (not applicable yet).
-    Numpy arrays given for ``idx``/``rows``/``scale`` become tensors."""
+    Numpy arrays given for ``idx``/``rows``/``scale`` become tensors.
+
+    **Quantized payloads** (``scale is not None``): ``rows`` holds int8
+    codec blocks ``[NB, 256]`` with f32 block scales ``scale`` [NB], and
+    ``row_shape`` / ``row_dtype`` (a numpy dtype name, shared with the
+    JAX package) record the original rows, so ``apply_delta``
+    dequantizes transparently."""
     idx: Optional[torch.Tensor]
     rows: Any
     scale: Any = None
@@ -81,6 +89,17 @@ class DeltaEntry:
         return (self.rows.nbytes
                 + (self.scale.nbytes if self.scale is not None else 0)
                 + (self.idx.nbytes if self.idx is not None else 0))
+
+    def materialize_rows(self, device=None) -> torch.Tensor:
+        """The rows on ``device`` (default: where they lie) in their
+        original shape and dtype: dequantized there for a quantized
+        entry (one f32 multiply, then one cast: bitwise the JAX
+        package's on every device); the rows themselves otherwise."""
+        if self.scale is None:
+            return self.rows if device is None else self.rows.to(device)
+        return dequantize_int8(self.rows.to(device), self.scale.to(device),
+                               tuple(self.row_shape),
+                               ckpt_lib.dtype_of(self.row_dtype))
 
 
 @dataclass
@@ -161,10 +180,6 @@ def apply_delta(params: Pytree, delta: SparseDelta, *, mode: str = "auto",
     (O(delta) bytes moved; the caller treats ``params`` as dead); the
     default leaves ``params`` intact.
     """
-    if delta.quantized:
-        raise NotImplementedError(
-            "int8-quantized delta payloads are not ported yet (ROADMAP "
-            "queue A: Q8 deltas)")
     fp = delta.meta.get("base_fingerprint")
     if check_fingerprint and fp is not None and fp != fingerprint(params):
         raise ValueError(
@@ -179,7 +194,10 @@ def apply_delta(params: Pytree, delta: SparseDelta, *, mode: str = "auto",
             raise KeyError(f"delta leaf {name!r} not present in params")
         i = by_name[name]
         leaf = out[i]
-        rows = e.rows.to(leaf.device)
+        # quantized entries dequantize on the leaf's device; the displaced
+        # side is always the exact resident values, so revert stays
+        # bit-exact
+        rows = e.materialize_rows(leaf.device)
         if e.idx is None:
             # whole-leaf swap: the old leaf itself is the displaced payload
             displaced[name] = DeltaEntry(idx=None, rows=leaf)
@@ -213,6 +231,28 @@ def flip_delta(params: Pytree, other_side: SparseDelta, *, mode: str = "auto"
     adapter), moving O(delta rows) bytes each time."""
     return apply_delta(params, other_side, mode=mode, donate=True,
                        check_fingerprint=False)
+
+
+def quantize_delta(delta: SparseDelta) -> SparseDelta:
+    """Int8 block-quantize a delta's float row payloads (opt-in at
+    export), with the JAX package's rules: integer rows and entries
+    already quantized pass through; an entry whose quantized form is not
+    smaller (256-element blocks pad tiny rows) stays unquantized; and
+    ``meta["quantized"]`` is set only if something was quantized."""
+    entries: Dict[str, DeltaEntry] = {}
+    for name, e in delta.entries.items():
+        if e.quantized or not e.rows.dtype.is_floating_point:
+            entries[name] = e
+            continue
+        rows = e.rows.detach().cpu()
+        q, s = quantize_int8(rows.float())
+        qe = DeltaEntry(idx=e.idx, rows=q, scale=s,
+                        row_shape=tuple(rows.shape),
+                        row_dtype=ckpt_lib.dtype_name(rows.dtype))
+        entries[name] = qe if qe.nbytes < e.nbytes else e
+    meta = dict(delta.meta)
+    meta["quantized"] = any(e.quantized for e in entries.values())
+    return SparseDelta(entries, meta)
 
 
 # ---------------------------------------------------------------------- #

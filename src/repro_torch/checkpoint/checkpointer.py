@@ -52,6 +52,11 @@ def dtype_name(dtype: torch.dtype) -> str:
     return _NAME_OF[dtype]
 
 
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a numpy dtype name (``bfloat16`` included)."""
+    return _DTYPE_OF[name]
+
+
 class TreeDef:
     """Structure of a nested dict/list tree; rebuilds it from leaves."""
 

@@ -31,8 +31,11 @@ per round, the tenant verifies all N + 1 positions, and the longest
 agreeing prefix is accepted; streams equal plain greedy decoding.  The
 ``speculative:`` line reports rounds and acceptance.
 
-``--cache-bytes`` (the device AdapterCache) parses, and the server
-raises ``NotImplementedError`` for it (ROADMAP queue A).
+``--cache-bytes N`` keeps hot adapters' delta rows resident on the
+device within N bytes (``repro_torch.adapters.AdapterCache``): a flip to
+a cached tenant is a device-to-device row swap; the ``adapter cache:``
+line reports residency, hit rate and host-to-device against
+device-to-device bytes.
 """
 from __future__ import annotations
 
@@ -55,8 +58,9 @@ def add_serve_config_flags(ap: argparse.ArgumentParser) -> None:
                     help="base decode steps per adapter group before "
                          "rotating (per-adapter budgets scale from this)")
     ap.add_argument("--cache-bytes", type=int, default=0,
-                    help="device AdapterCache budget (not ported yet; "
-                         "must be 0)")
+                    help="device byte budget for the AdapterCache "
+                         "(delta rows kept resident; 0 = uncached, every "
+                         "flip re-uploads host rows)")
     ap.add_argument("--aging-steps", type=int, default=0,
                     help="anti-starvation bound in decode steps "
                          "(0 = 3x steps-per-turn)")
@@ -293,6 +297,14 @@ def run(argv=None):
               f"({sched['swap_rate']:.3f}/step), "
               f"{sched['swap_bytes'] / 2 ** 20:.2f} MiB moved; "
               f"registry: {reg_stats}")
+        if srv.cache is not None:
+            c = srv.cache.stats()
+            print(f"adapter cache: {c['resident']} resident "
+                  f"({c['resident_bytes'] / 2 ** 20:.2f} / "
+                  f"{c['cache_bytes'] / 2 ** 20:.2f} MiB), "
+                  f"hit rate {c['hit_rate']:.0%}, "
+                  f"h2d {c['h2d_bytes'] / 2 ** 20:.2f} MiB vs "
+                  f"d2d {c['d2d_bytes'] / 2 ** 20:.2f} MiB")
     if tracer is not None:
         from repro_torch.obs import write_trace
         p = write_trace(args.trace, tracer, srv.metrics)

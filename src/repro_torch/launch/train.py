@@ -8,10 +8,11 @@ The same flags as the JAX launcher, minus ``--tpu-flags``, plus
 ``--device`` (default: the CUDA device, raising without a card; ``cpu``
 runs on the CPU with every kernel's plain PyTorch version).
 ``--optimizer`` is a ``repro_torch.trainers`` registry lookup:
-``blockllm``, ``blockllm+q8``, ``adam``, ``adam+q8``; ``galore``,
-``lora``, ``badam`` and ``badam+q8`` raise ``NotImplementedError``
-(ROADMAP A8).  ``blockllm`` and ``blockllm+q8`` on the card run the
-fused masked-Adam kernels (f32 and Q8 moments) by default.  ``--reduce
+``blockllm``, ``blockllm+q8``, ``adam``, ``adam+q8``, and the paper's
+baselines ``galore`` (``--rank``), ``lora`` (``--rank``), ``badam`` and
+``badam+q8`` (a block switch every ``--patience`` steps).  ``blockllm``,
+``badam`` and their ``+q8`` forms on the card run the fused masked-Adam
+kernels (f32 and Q8 moments) by default.  ``--reduce
 N`` scales the arch down (0 = full width).  Hybrid archs
 (``--arch recurrentgemma-2b``) run their RG-LRU scans through the scan
 kernel, forward and backward.

@@ -53,11 +53,17 @@ runs in one pass (ROADMAP C).  Paged slots roll rejected pages back
 (``PageAllocator.rollback_to``).  The draft length adapts per group on
 an acceptance EMA.
 
-Not ported yet (ROADMAP queue A): the device AdapterCache —
-``sched.cache_bytes > 0`` raises ``NotImplementedError``.  There is no
-jit: the ``sched/compiles`` counter counts the lazy kernel builds (1 on
-the first kernel use in the process, 0 after), and the one host sync
-per decode dispatch is the argmax of the logits.
+**AdapterCache** (``adapters/device_cache.py``): with ``sched.cache_bytes
+> 0`` (or an ``AdapterCache`` passed as ``cache=``) hot adapters' delta
+rows stay resident on the device, so a flip to a cached tenant is a
+device-to-device row swap with no host transfer; a reverted tenant's
+rows are captured into the cache from the revert's displaced rows, and
+q8 payloads are dequantized once, on promotion.  Streams equal uncached
+serving.
+
+There is no jit: the ``sched/compiles`` counter counts the lazy kernel
+builds (1 on the first kernel use in the process, 0 after), and the one
+host sync per decode dispatch is the argmax of the logits.
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch.adapters import delta as delta_lib
+from repro_torch.adapters.device_cache import AdapterCache
 from repro_torch.checkpoint.checkpointer import tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
@@ -133,15 +140,14 @@ def _chunk_bucket(k: int, cap: int) -> int:
 
 class DecodeServer:
     def __init__(self, cfg, params, config: Optional[ServeConfig] = None,
-                 *, registry=None, tracer=None, metrics=None, device=None):
+                 *, registry=None, cache=None, tracer=None, metrics=None,
+                 device=None):
         """``params``: a tensor tree (``model.init_params`` layout).
         ``device=None`` means the CUDA device (raises without one);
-        pass ``device="cpu"`` to serve on the CPU."""
+        pass ``device="cpu"`` to serve on the CPU.  ``cache``: an
+        ``AdapterCache`` to serve adapters through (else one is built
+        when ``config.sched.cache_bytes > 0``)."""
         config = config if config is not None else ServeConfig()
-        if config.sched.cache_bytes > 0:
-            raise NotImplementedError(
-                "the device AdapterCache is not ported yet (ROADMAP queue "
-                "A: AdapterCache)")
         model_lib.check_supported(cfg)
         self.config = config
         self.device = model_lib.resolve_device(device)
@@ -166,6 +172,15 @@ class DecodeServer:
         self._ms_auto = sched.ms_per_step == "auto"
         self._ms_samples = 0
         self.ms_per_step = 1.0 if self._ms_auto else float(sched.ms_per_step)
+        self.cache = cache
+        if self.cache is None and sched.cache_bytes > 0:
+            if registry is None:
+                raise ValueError("cache_bytes needs an adapter registry")
+            self.cache = AdapterCache(registry, cache_bytes=sched.cache_bytes,
+                                      tracer=tracer, device=self.device)
+        elif self.cache is not None and tracer is not None \
+                and self.cache.tracer is None:
+            self.cache.tracer = tracer
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * self.slots
         self.pos = np.zeros(self.slots, np.int32)   # next write index
@@ -295,17 +310,23 @@ class DecodeServer:
     def _ensure_adapter(self, adapter_id: Optional[str]):
         """Make ``self.params`` carry ``adapter_id`` (no-op when it
         already does).  Swap = revert the current delta rows, apply the
-        new ones; both are exact row swaps, in place on the device."""
+        new ones; both are exact row swaps, in place on the device.  With
+        an AdapterCache the delta rows come from (and return to) it."""
         if adapter_id == self._applied:
             return
         tr = self.tracer
         if self._applied is not BASE:
             t0 = time.monotonic_ns() if tr is not None else 0
             disp, self._displaced = self._displaced, None
-            self.params, _ = delta_lib.apply_delta(
+            # the revert's displaced rows are the leaving adapter's exact
+            # resident values: the cache captures them (no transfer)
+            self.params, back = delta_lib.apply_delta(
                 self.params, disp, mode=self.swap_mode, donate=True,
                 check_fingerprint=False)
-            self.registry.release(self._applied)
+            if self.cache is not None:
+                self.cache.put_back(self._applied, back)
+            else:
+                self.registry.release(self._applied)
             # committed per half-swap: if the apply below fails the
             # server is consistently back on the base model
             if tr is not None:
@@ -319,12 +340,16 @@ class DecodeServer:
             self.metrics.counter("sched/swap_bytes").inc(disp.nbytes)
         if adapter_id is not BASE:
             t0 = time.monotonic_ns() if tr is not None else 0
-            d = self.registry.acquire(adapter_id)
+            if self.cache is not None:
+                d = self.cache.get(adapter_id)
+            else:
+                d = self.registry.acquire(adapter_id)
             try:
                 self.params, self._displaced = delta_lib.apply_delta(
                     self.params, d, mode=self.swap_mode, donate=True)
             except Exception:
-                self.registry.release(adapter_id)
+                if self.cache is None:
+                    self.registry.release(adapter_id)
                 raise
             if tr is not None:
                 tr.add_span("swap_apply", t0, time.monotonic_ns(),
@@ -912,9 +937,9 @@ class DecodeServer:
             f"max_steps={max_steps} (rids {undone[:8]}...)")
 
     def stats(self) -> Dict[str, object]:
-        """Nested ``prefill`` / ``decode`` / ``sched`` (and ``kv`` /
-        ``spec`` when enabled) sections from the metrics registry, stamped
-        ``stats_version`` 2 (the JAX schema)."""
+        """Nested ``prefill`` / ``decode`` / ``sched`` (and ``cache`` /
+        ``kv`` / ``spec`` when enabled) sections from the metrics
+        registry, stamped ``stats_version`` 2 (the JAX schema)."""
         swap_rate = self.swaps / self.steps if self.steps else 0.0
         self.metrics.gauge("decode/ms_per_step").set(self.ms_per_step)
         self.metrics.gauge("sched/swap_rate").set(swap_rate)
@@ -936,6 +961,8 @@ class DecodeServer:
             spec["tokens_per_step"] = (self.spec_emitted / spec["rounds"]
                                        if spec.get("rounds") else 0.0)
             out["spec"] = spec
+        if self.cache is not None:
+            out["cache"] = self.cache.stats()
         if self.alloc is not None:
             kv = dict(nested.get("kv", {}))
             kv["page_size"] = self.alloc.page_size

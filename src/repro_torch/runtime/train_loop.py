@@ -38,13 +38,9 @@ class TrainLoopConfig:
     # the row-sparse delta to an adapter registry
     adapter_dir: Optional[str] = None
     adapter_id: str = "adapter"
+    # int8-quantize exported delta payloads (rows -> int8 codec blocks +
+    # f32 scales; about 4x smaller registry entries, dequantized on apply)
     quantize_deltas: bool = False
-
-    def __post_init__(self):
-        if self.quantize_deltas:
-            raise NotImplementedError(
-                "int8-quantized delta export is not ported yet (ROADMAP "
-                "queue A4: Q8 deltas)")
 
 
 def _protocol_state(trainer) -> TrainState:
@@ -152,12 +148,15 @@ class _AdapterExporter:
     The base snapshot is a deep copy (the trainer updates its tensors in
     place, and ``reselect`` writes rows into ``params``), persisted under
     ``<adapter_dir>/_base/<adapter_id>`` on the first run and reloaded
-    from there on resume."""
+    from there on resume.  ``quantize`` publishes int8 payloads
+    (``adapters.quantize_delta``)."""
 
-    def __init__(self, registry, base, adapter_id: str):
+    def __init__(self, registry, base, adapter_id: str,
+                 quantize: bool = False):
         self.registry = registry
         self.base = base
         self.adapter_id = adapter_id
+        self.quantize = quantize
         self.last_step = -1
 
     @staticmethod
@@ -188,14 +187,17 @@ class _AdapterExporter:
                 return None
             base, _ = ckpt_lib.restore(snap, 0, trainer.merged_params())
         return _AdapterExporter(AdapterRegistry(cfg.adapter_dir), base,
-                                cfg.adapter_id)
+                                cfg.adapter_id,
+                                quantize=cfg.quantize_deltas)
 
     def emit(self, trainer, step: int):
         if step == self.last_step:
             return  # final step coincides with a checkpoint boundary
-        from repro_torch.adapters import delta_from_trainer
+        from repro_torch.adapters import delta_from_trainer, quantize_delta
         d = delta_from_trainer(trainer, self.base,
                                meta={"step": step,
                                      "adapter_id": self.adapter_id})
+        if self.quantize:
+            d = quantize_delta(d)
         self.registry.put(self.adapter_id, d)
         self.last_step = step

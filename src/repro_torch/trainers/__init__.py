@@ -11,11 +11,11 @@ or, for imperative callers:
     tr = trainers.handle("blockllm", cfg, params, device="cpu")
     tr.train_step(batch); tr.memory_report(); tr.params
 
-Registered: ``blockllm``, ``blockllm+q8``, ``adam``, ``adam+q8``.  The
-JAX package's ``galore``, ``lora``, ``badam`` and ``badam+q8`` are
-registered names that raise ``NotImplementedError`` (ROADMAP A8).
-Every factory takes ``device`` (default: the CUDA device; raises without
-a card unless the caller asks for the CPU).
+Registered, as in the JAX package: ``blockllm``, ``blockllm+q8``,
+``adam``, ``adam+q8``, and the paper's baselines ``galore``, ``lora``,
+``badam`` and ``badam+q8``.  Every factory takes ``device`` (default:
+the CUDA device; raises without a card unless the caller asks for the
+CPU).
 """
 from repro_torch.trainers.api import (StateSpec, TrainerCore, TrainerHandle,
                                       TrainState, check_state, jsonable,
@@ -35,20 +35,11 @@ def handle(name: str, cfg, params=None, *, seed: int = 0, device=None,
 
 
 # importing the implementation modules populates the registry
+from repro_torch.trainers import badam as _badam          # noqa: F401,E402
 from repro_torch.trainers import blockllm as _blockllm    # noqa: F401,E402
 from repro_torch.trainers import full_adam as _full_adam  # noqa: F401,E402
-
-
-def _not_ported(name):
-    def factory(cfg, **_):
-        raise NotImplementedError(
-            f"trainer {name!r} is not ported yet (ROADMAP queue A8: "
-            f"baseline trainers)")
-    return factory
-
-
-for _name in ("galore", "lora", "badam", "badam+q8"):
-    register(_name)(_not_ported(_name))
+from repro_torch.trainers import galore as _galore        # noqa: F401,E402
+from repro_torch.trainers import lora as _lora            # noqa: F401,E402
 
 __all__ = [
     "StateSpec", "TrainerCore", "TrainerHandle", "TrainState",

@@ -1,9 +1,10 @@
 """Port adapters (``repro_torch.adapters``) against the JAX package.
 
 A delta extracted by the JAX package applies in the port bit for bit
-(the same rows as JAX's ``apply_delta``), revert is bit-exact, the
-structural fingerprints agree, and registry directories written by
-either package load in the other, payload checksum and all.
+(the same rows as JAX's ``apply_delta``; int8-quantized payloads too),
+revert is bit-exact, the structural fingerprints agree, and registry
+directories written by either package load in the other, payload
+checksum and all.
 """
 import jax
 import jax.numpy as jnp
@@ -126,13 +127,15 @@ def test_corrupt_payload_and_quantized_delta(jparams, tmp_path):
     np.savez(path / "arrays.npz", **arrays)
     with pytest.raises(tad.AdapterCorruptError):
         tad.load_delta(path)
-    # Q8 payloads written by JAX load, but applying one is not ported
+    # Q8 payloads written by JAX load and apply as JAX applies them, and
+    # revert exactly
     jq = jquantize(jextract(jparams, tuned))
     JRegistry(tmp_path / "q").put("q", jq)
     q = tad.AdapterRegistry(tmp_path / "q").get("q")
     assert q.quantized
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tad.apply_delta(_port(jparams), q)
+    new, displaced = tad.apply_delta(_port(jparams), q)
+    _same_bits(new, japply(jparams, jq)[0])
+    _same_bits(tad.revert_delta(new, displaced), jparams)
 
 
 def test_bf16_payload_round_trip(tmp_path):

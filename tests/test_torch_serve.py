@@ -140,10 +140,17 @@ def test_device_is_never_silently_cpu(setup, monkeypatch):
 
 @pytest.mark.parametrize("change", [dict(sched={"cache_bytes": 1 << 20})])
 def test_unported_serving_features_raise(setup, change):
+    """The device AdapterCache needs a registry (JAX's
+    ``test_cache_requires_registry``); with one it is built on the
+    server's device."""
     _, _, _, cfg, params, reg = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeServer(cfg, params, ServeConfig(**change), registry=reg,
-                     device="cpu")
+    with pytest.raises(ValueError, match="registry"):
+        DecodeServer(cfg, params, ServeConfig(**change), device="cpu")
+    srv = DecodeServer(cfg, params, ServeConfig(**change), registry=reg,
+                       device="cpu")
+    assert srv.cache.cache_bytes == 1 << 20
+    assert srv.cache.device == torch.device("cpu")
+    assert srv.stats()["cache"]["misses"] == 0
 
 
 def test_spec_accept_equals_jax():
@@ -186,8 +193,9 @@ def test_launcher_quick_on_cpu(capsys, tmp_path):
 def test_port_imports_neither_jax_nor_repro():
     """Importing every module of the port (and chip_smoke.py) in a fresh
     interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
-    training slice's, the paged serving slice's, the RG-LRU slice's and
-    the flash-attention slice's modules are among them."""
+    training slice's, the paged serving slice's, the RG-LRU slice's, the
+    flash-attention slice's, the AdapterCache's and the baselines'
+    modules are among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -207,7 +215,10 @@ def test_port_imports_neither_jax_nor_repro():
         "    'obs.emit', 'runtime.straggler', 'runtime.paged_kv',\n"
         "    'runtime.serve_loop', 'kernels.decode_attention', 'kernels.ops',\n"
         "    'models.model', 'adapters.delta', 'models.rglru',\n"
-        "    'kernels.rglru_scan', 'kernels.flash_attention')}\n"
+        "    'kernels.rglru_scan', 'kernels.flash_attention',\n"
+        "    'adapters.device_cache', 'baselines.galore', 'baselines.lora',\n"
+        "    'baselines.badam', 'trainers.galore', 'trainers.lora',\n"
+        "    'trainers.badam')}\n"
         "missing = sorted(need - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 55 else 0)\n")
