@@ -161,6 +161,21 @@ What it does, failing (non-zero exit, no result line) on any error:
    device memory of all
    eight trainer cores at one batch (phases 7-8 give BlockLLM's and
    Adam's), with their memory reports and step p50s;
+23. the serving fleet (the port's slice 10) at the full width and depth
+   of ``internlm2-1.8b``: base + 3 q8 demo tenants with a cache budget
+   of two, 8 slots, 48 requests (Zipf 1.2 tenancy, prompts of 3-6
+   tokens) x 12 new tokens, no SLO, as ``benchmarks/bench_fleet.py``
+   shapes its traffic.  One ``DecodeServer`` gives the reference
+   streams; then ``runtime.fleet.Router`` at 1 and 2 replicas (streams
+   bitwise the server's; tokens per round at 2 replicas at least 1.8x
+   one replica's), a kill of the busiest replica at round 4 with a
+   replacement (streams bitwise, one fence, zero sheds, the replays
+   counted, the device memory the fence freed; the merged trace passes
+   ``tools/check_trace.py --require-fleet --require-failover``) and
+   ``adapter_read_error:n=2`` (retried reads counted, streams bitwise),
+   launch counts reset just before each leg and read just after (decode
+   attention and the swap kernel must launch); each replica's device
+   memory at its peak, tokens per round, rounds to recover;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -2716,6 +2731,274 @@ def baselines_train(torch, np, ops, peaks, card):
     return peaks
 
 
+# --------------------------------------------------------------------- #
+# phase 23: the serving fleet (slice 10)
+# --------------------------------------------------------------------- #
+
+FLEET_REQUESTS, FLEET_NEW_TOKENS, FLEET_SLOTS = 48, 12, 8
+
+
+def replica_bytes(srv) -> int:
+    """Device bytes one replica holds: its weights, KV cache, displaced
+    base rows and cached delta rows."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    trees = [srv.params, srv.cache_state]
+    if srv._displaced is not None:
+        trees.append({n: e.rows for n, e in srv._displaced.entries.items()})
+    nb = sum(t.nbytes for tree in trees for t in _flatten_with_names(tree)[1])
+    return nb + (srv.cache.resident_bytes() if srv.cache is not None else 0)
+
+
+def first_divergence(torch, cfg, params, registry, reqs, want) -> str:
+    """The first request and token where ``reqs`` leave the reference
+    streams ``want``, with the reference's top-2 logit margin there (a
+    teacher-forced forward under the request's tenant)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_config import ServeConfig
+    from repro_torch.runtime.serve_loop import DecodeServer
+    for r in reqs:
+        ref = want[r.rid]
+        if tuple(r.out) == ref:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(r.out, ref)) if a != b),
+                 min(len(r.out), len(ref)))
+        srv = DecodeServer(cfg, params, ServeConfig(batch_slots=1),
+                           registry=registry)
+        srv._ensure_adapter(r.adapter_id)
+        toks = torch.as_tensor(list(r.prompt) + list(ref[:j]),
+                               device="cuda")[None]
+        with torch.no_grad():
+            lg = model_lib.forward(srv.params, cfg, toks,
+                                   attn_impl="full")[0, -1].float()
+        top = torch.topk(lg, 2).values
+        del srv
+        return (f"rid {r.rid} (tenant {r.adapter_id}, prompt "
+                f"{len(r.prompt)} tokens) first differs at new token {j}: "
+                f"reference {ref[j] if j < len(ref) else None}, got "
+                f"{r.out[j] if j < len(r.out) else None}; the reference's "
+                f"top-2 logit margin there {float(top[0] - top[1]):.6g}")
+    return "no divergence"
+
+
+def fleet_serving(torch, np, ops, card):
+    """Phase 23: the serving fleet at the full width and depth of
+    ``internlm2-1.8b``: base + 3 q8 demo tenants (a cache budget of two),
+    8 slots, Zipf (alpha 1.2) tenancy, 48 requests of 3-6 prompt tokens x
+    12 new tokens, no SLO.  One ``DecodeServer`` gives the reference
+    streams; then the Router at 1 and 2 replicas, a kill of the busiest
+    replica at round 4 with a replacement, and two failed registry reads,
+    launch counts reset just before each leg and read just after.
+    Returns the 2-replica leg's launches."""
+    import gc
+    from repro_torch.adapters import InMemoryRegistry, quantize_delta
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.fleet import zipf_tenant_mix
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.elastic import FaultPlan
+    from repro_torch.runtime.fleet import Router
+    from repro_torch.runtime.serve_config import (FleetConfig, SchedConfig,
+                                                  ServeConfig)
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+
+    t_phase = time.monotonic()
+    cfg = get_config(ARCH)
+    params = model_lib.init_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(23),
+        device="cuda")
+    fp_reg, ids = serve.make_demo_registry(params, 3)
+    q8 = {a: quantize_delta(fp_reg.get(a)) for a in ids}
+    del fp_reg
+    dev_nb = sorted((device_nbytes(torch, d) for d in q8.values()),
+                    reverse=True)
+    budget = dev_nb[0] + dev_nb[1] + 4096
+    tenants = [None] + ids
+    rng = np.random.default_rng(23)
+    mix = zipf_tenant_mix(tenants, FLEET_REQUESTS, rng, alpha=1.2)
+    prompts = [rng.integers(0, cfg.vocab_size, 3 + i % 4)
+               for i in range(FLEET_REQUESTS)]
+    counts = {str(t): mix.count(t) for t in tenants}
+    print(f"fleet ({ARCH}, full width and depth, bf16, base + 3 q8 demo "
+          f"tenants, cache budget {budget / 2 ** 20:.1f} MiB = two "
+          f"tenants' device rows, {FLEET_SLOTS} slots, 4-step turns; "
+          f"{FLEET_REQUESTS} requests x {FLEET_NEW_TOKENS} new tokens, "
+          f"prompts of 3-6 tokens, Zipf 1.2 tenancy {counts}, no SLO; "
+          f"tenants built in {time.monotonic() - t_phase:.1f} s) ({card})")
+
+    def config(**fleet):
+        return ServeConfig(batch_slots=FLEET_SLOTS, max_seq=64,
+                           attn_impl="kernel",
+                           sched=SchedConfig(steps_per_turn=4,
+                                             cache_bytes=budget),
+                           fleet=FleetConfig(**fleet))
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=FLEET_NEW_TOKENS,
+                        adapter_id=t)
+                for i, (p, t) in enumerate(zip(prompts, mix))]
+
+    # the reference: one DecodeServer on the same requests
+    ops.reset_launches()
+    reg = InMemoryRegistry(dict(q8))
+    srv = DecodeServer(cfg, params, config(), registry=reg)
+    reqs = requests()
+    t0 = time.monotonic()
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    want = {r.rid: tuple(r.out) for r in reqs}
+    tok = sum(len(r.out) - 1 for r in reqs)
+    print(f"fleet reference: one DecodeServer, {srv.steps} decode steps, "
+          f"{tok / srv.steps:.3f} decode tokens per step, "
+          f"{time.monotonic() - t0:.2f} s wall, launches "
+          f"{dict(ops.LAUNCHES)} ({card})")
+    del srv, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    legs = {}
+    gate_fail = []
+
+    def leg(name, replicas, plan=None, fault=None, trace=False, **fleet):
+        reg = InMemoryRegistry(dict(q8))
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        router = Router(cfg, params, config(**fleet), replicas=replicas,
+                        registry=reg, trace=trace,
+                        fault_plan=FaultPlan.parse(plan))
+        reqs = requests()
+        for r in reqs:
+            if router.submit(r) is None:
+                raise AssertionError(f"{name}: request {r.rid} was shed")
+        victim = None
+        freed = {}
+        if fault is not None:
+            victim = max(router.replicas,
+                         key=lambda n: router.replicas[n].depth())
+            router.faults = FaultPlan.parse(fault.format(victim=victim))
+            rep = router.replicas[victim]
+            release = rep.release
+
+            def measured_release():
+                torch.cuda.synchronize()
+                m0 = torch.cuda.memory_allocated()
+                release()
+                gc.collect()
+                torch.cuda.synchronize()
+                freed["bytes"] = m0 - torch.cuda.memory_allocated()
+
+            rep.release = measured_release
+        held = {}
+
+        def on_round(rt):
+            for n, rp in rt.replicas.items():
+                held[n] = max(held.get(n, 0), replica_bytes(rp.server))
+
+        on_round(router)
+        router.run_until_drained(on_round=on_round)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(ops.LAUNCHES)
+        s = router.stats()
+        f = s["fleet"]
+        streams = {r.rid: tuple(r.out) for r in reqs}
+        equal = streams == want and all(r.done for r in reqs)
+        out = dict(router=router, f=f, wall=wall, launches=launches,
+                   equal=equal, held=held, victim=victim, freed=freed,
+                   peak=torch.cuda.max_memory_allocated() - base_mem,
+                   retried=reg.retried_reads, plan=router.faults)
+        print(f"fleet {name}: {replicas} replica(s), {f['rounds']} rounds, "
+              f"{f['tokens']} decode tokens, {f['tps_per_round']:.3f} "
+              f"tokens per round; {f['routed_home']} home / {f['spills']} "
+              f"spilled / {f['steals']} stolen / {f['sheds']} shed; swaps "
+              f"{f['swaps']}, peer hits {f['peer_hits']} "
+              f"({f['xrep_bytes'] / 2 ** 20:.1f} MiB shared), h2d "
+              f"{f['h2d_bytes'] / 2 ** 20:.1f} MiB; {wall:.2f} s wall; "
+              f"launches {launches}; streams bitwise the single server's: "
+              f"{equal} ({card})")
+        print(f"fleet {name}: device memory held per replica at its peak "
+              f"(weights + KV + displaced + cached rows) "
+              + ", ".join(f"{n} {b / 2 ** 30:.3f} GiB"
+                          for n, b in sorted(held.items()))
+              + f"; the leg's peak above its start "
+              f"{out['peak'] / 2 ** 30:.3f} GiB ({card})")
+        for k in SERVE_KERNELS:
+            if launches[k] == 0:
+                gate_fail.append(f"{name}: {k} did not launch")
+        if not equal:
+            gate_fail.append(f"{name}: streams differ from the single "
+                             f"server's; " + first_divergence(
+                                 torch, cfg, params, reg, reqs, want))
+        legs[name] = out
+        return out
+
+    one = leg("1 replica", 1)
+    two = leg("2 replicas", 2)
+    ratio = two["f"]["tps_per_round"] / one["f"]["tps_per_round"]
+    print(f"fleet tokens per round: 2 replicas {two['f']['tps_per_round']:.3f}"
+          f" / 1 replica {one['f']['tps_per_round']:.3f} = {ratio:.3f}x "
+          f"(gate >= 1.8x) ({card})")
+    if ratio < 1.8:
+        gate_fail.append(f"tokens per round at 2 replicas only {ratio:.3f}x "
+                         f"one replica's")
+    del one, two
+    legs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kill = leg("kill", 2, fault="kill:{victim}@round4", trace=True,
+               replace_after_fence=True)
+    f = kill["f"]
+    recs = f["recoveries"]
+    print(f"fleet kill: fenced {f['fenced_replicas']}, fences {f['fences']},"
+          f" failovers (replayed in-flight requests) {f['failovers']}, "
+          f"recoveries {recs}, rounds to recover {f['recover_rounds']}, "
+          f"sheds {f['sheds']}; device memory freed at the fence "
+          f"{kill['freed'].get('bytes', 0) / 2 ** 30:.3f} GiB "
+          f"({card})")
+    if f["fences"] != 1 or f["sheds"] != 0 or f["failovers"] < 1 \
+            or f["fenced_replicas"] != {kill["victim"]: "killed"}:
+        gate_fail.append("kill: expected one fence of the victim, zero "
+                         "sheds and at least one replay")
+    if kill["freed"].get("bytes", 0) <= 0:
+        gate_fail.append("kill: the fence freed no device memory")
+    trace = OUT / "fleet_kill_trace.json"
+    kill["router"].write_trace(trace)
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"),
+                        "--kind", "serve", "--require-fleet",
+                        "--require-failover", str(trace)],
+                       capture_output=True, text=True, timeout=120)
+    print(f"fleet kill trace: {(r.stdout + r.stderr).strip()} ({card})")
+    if r.returncode != 0:
+        gate_fail.append("kill: check_trace.py refused the merged trace")
+    del kill
+    legs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    err = leg("adapter_read_error", 2, plan="adapter_read_error:n=2")
+    print(f"fleet adapter_read_error: injected {err['plan'].injected}, "
+          f"registry retried reads {err['retried']}, fenced "
+          f"{err['f']['fenced_replicas']} ({card})")
+    if err["retried"] < 2 or err["plan"].injected["read_error"] != 2 \
+            or err["f"]["fences"]:
+        gate_fail.append("adapter_read_error: the retries were not "
+                         "counted, or a replica was fenced")
+    launches = legs["adapter_read_error"]["launches"]
+    del err
+    legs.clear()
+    del params, q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fleet phase: {time.monotonic() - t_phase:.1f} s ({card})")
+    if gate_fail:
+        raise AssertionError("fleet phase: " + "; ".join(gate_fail))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2916,7 +3199,15 @@ def main() -> int:
     t1 = time.monotonic()
     print(f"phase 21: {t1 - t0:.1f} s")
     baselines_train(torch, np, ops, peaks, card)
-    print(f"phase 22: {time.monotonic() - t1:.1f} s")
+    t2 = time.monotonic()
+    print(f"phase 22: {t2 - t1:.1f} s")
+
+    # phase 23: the serving fleet: one server's streams, the Router at 1
+    # and 2 replicas, a kill with replay, failed registry reads
+    fleet_launches = fleet_serving(torch, np, ops, card)
+    print(f"phase 23: {time.monotonic() - t2:.1f} s; fleet launches "
+          f"(adapter_read_error leg) "
+          f"{ {k: fleet_launches[k] for k in SERVE_KERNELS} } ({card})")
 
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the

@@ -199,9 +199,14 @@ def apply_delta(params: Pytree, delta: SparseDelta, *, mode: str = "auto",
         # bit-exact
         rows = e.materialize_rows(leaf.device)
         if e.idx is None:
-            # whole-leaf swap: the old leaf itself is the displaced payload
+            # whole-leaf swap: the old leaf itself is the displaced
+            # payload, and the new leaf is a copy the caller owns: the
+            # rows may be a cached tensor that other trees (a fleet's
+            # other replicas) also apply, and a later in-place swap on
+            # this leaf must not reach them
             displaced[name] = DeltaEntry(idx=None, rows=leaf)
-            out[i] = rows.reshape(leaf.shape).to(leaf.dtype)
+            out[i] = rows.reshape(leaf.shape).to(dtype=leaf.dtype,
+                                                 copy=True)
         else:
             out[i], disp = ops.scatter_swap(leaf, e.idx, rows, mode=mode,
                                             donate=donate)

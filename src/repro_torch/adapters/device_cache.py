@@ -26,8 +26,11 @@ displaced base rows that make revert bit-exact belong to the serving
 loop, never to this cache.
 
 Cached rows are never written in place: the serving loop's swaps copy
-them into the live leaves (or, for a whole-leaf entry, make the cached
-tensor the live leaf until the revert swaps it out again).
+them into the live leaves, and a whole-leaf entry is applied as a copy
+(``apply_delta``).  So a fleet's replicas may share cached tensors
+(``directory`` peer hits take a peer's entries without a copy): no
+tensor that one replica's swaps write in place is reachable from
+another replica.
 """
 from __future__ import annotations
 

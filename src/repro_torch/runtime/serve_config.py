@@ -21,10 +21,12 @@ Sections:
   adaptive backoff),
 - ``FleetConfig``  — fleet routing/elasticity knobs.
 
-The port's ``DecodeServer`` serves the dense layout without speculation
-or AdapterCache; it raises ``NotImplementedError`` for configs that ask
-for those (ROADMAP queue A).  ``to_json``/``from_json`` round-trip
-bit-exactly (``ServeConfig.from_json(cfg.to_json()) == cfg``).
+The port serves every section: the dense and the paged KV layouts,
+self-speculative decoding, the device AdapterCache (``cache_bytes >
+0``), and the fleet (``runtime/fleet.py``: the Router builds every
+replica from one ``ServeConfig`` and reads ``fleet``).
+``to_json``/``from_json`` round-trip bit-exactly
+(``ServeConfig.from_json(cfg.to_json()) == cfg``).
 """
 from __future__ import annotations
 

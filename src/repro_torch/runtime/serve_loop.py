@@ -9,10 +9,13 @@ swapped out slot-wise while the rest keep decoding:
   leaves inactive slots' rows bit-exact (the JAX server blends the whole
   cache under the mask inside its jitted step);
 - **chunked batched prefill**: a whole admitted group's prompts run
-  through ``model.prefill_into_slots`` in prompt chunks (tail chunks
-  bucketed to powers of two); ``prefill_chunk=0`` restores per-token
-  priming through the decode step, which recurrent (RG-LRU) models
-  always use;
+  through ``model.prefill_into_slots`` in chunks of ``prefill_chunk``
+  positions on a fixed grid (the JAX server buckets tail chunks to
+  powers of two; on the card a chunk's shape changes the bits of its
+  K/V rows, so a fixed grid keeps a request's rows, and its stream,
+  independent of what it was admitted with); ``prefill_chunk=0``
+  restores per-token priming through the decode step, which recurrent
+  (RG-LRU) models always use;
 - at admission a slot's recurrent state is zeroed on the device, so a
   request in a reused slot decodes as in a fresh server (the JAX server
   primes on the state the slot's last request left, ROADMAP C).
@@ -103,6 +106,52 @@ class Request:
     first_token_step: int = -1  # decode-step clock at first output token
     finish_step: int = -1       # decode-step clock at completion
     submit_ns: int = -1         # monotonic clock at submit() (tracing)
+    # trailing prompt tokens an interrupted stream decoded one at a time
+    # (a failover replay): primed through the decode step, as they were
+    decoded_tail: int = 0
+
+    def replay_clone(self, rid: int) -> "Request":
+        """Failover replay of this in-flight request on a peer replica
+        (``runtime/fleet.py``): the clone's prompt is the retained prompt
+        plus every token already streamed, its budget the tokens left.
+        Greedy decoding is a function of the prefix, so the clone goes on
+        where an uninterrupted run would have.
+
+        The clone's ``on_token`` forwards each token into this request's
+        ``out`` / ``on_token``, deduplicated at the emitted-token
+        watermark: the clone's k-th token is stream position ``watermark
+        + k`` and is dropped when this request already holds it.  The
+        Router marks this request done when the clone finishes.
+
+        The streamed tokens' K/V rows were written by decode steps, so
+        the clone primes them through the decode step too
+        (``decoded_tail``), and only the original prompt through chunked
+        prefill: in bf16 on the card a prefill chunk rounds those rows
+        differently from the decode step, and the continuation would
+        part from the uninterrupted one (the JAX package primes the whole
+        clone prompt in chunks)."""
+        watermark = len(self.out)
+        remaining = self.max_new_tokens - watermark
+        assert remaining > 0, \
+            f"request {self.rid} already emitted its full budget"
+        prompt = np.asarray(self.prompt).ravel()
+        if watermark:
+            prompt = np.concatenate(
+                [prompt, np.asarray(self.out, prompt.dtype)])
+        clone = Request(rid=rid, prompt=prompt, max_new_tokens=remaining,
+                        adapter_id=self.adapter_id, slo_ms=self.slo_ms,
+                        decoded_tail=watermark)
+
+        def _forward(tok: int, _orig=self, _clone=clone,
+                     _base=watermark) -> None:
+            pos = _base + len(_clone.out) - 1   # out appended pre-callback
+            if len(_orig.out) == pos:           # watermark dedup
+                _orig.out.append(tok)
+                if _orig.on_token is not None:
+                    _orig.on_token(tok)
+
+        clone.on_token = _forward
+        return clone
 
 
 def _lane(adapter_id: Optional[str]) -> str:
@@ -127,15 +176,6 @@ def spec_accept(draft: Sequence[int], verify: Sequence[int]
     while a < n and draft[a] == verify[a]:
         a += 1
     return a, [int(t) for t in verify[:a + 1]]
-
-
-def _chunk_bucket(k: int, cap: int) -> int:
-    """Round a ragged tail-chunk length up to the next power of two
-    (capped at the configured chunk)."""
-    b = 1
-    while b < k:
-        b <<= 1
-    return min(b, cap)
 
 
 class DecodeServer:
@@ -592,63 +632,62 @@ class DecodeServer:
         """Per-token priming: teacher-force each prompt through the
         decode step, one token at a time, one request at a time.  Paged
         slots start at their shared-prefix match."""
-        tr = self.tracer
         paged = self.alloc is not None
         begins = (self._prime_begins(admitted) if paged
                   else np.zeros(self.slots, np.int32))
         table = self._table()
-        firsts = []
-        for slot, req in admitted:
-            logits = None
-            toks = self.tokens.copy()
-            t0 = time.monotonic_ns() if tr is not None else 0
-            b0 = int(begins[slot])
-            for t in range(b0, len(req.prompt)):
-                toks[slot, 0] = int(req.prompt[t])
-                pos = self.pos.copy()
-                pos[slot] = t
-                logits = self._decode(toks, pos, self._mask(slot), table)
-                self.prefill_dispatches += 1
-            self.metrics.counter("prefill/dispatches").inc(
-                len(req.prompt) - b0)
-            if tr is not None:
-                tr.add_span("prefill", t0, time.monotonic_ns(),
-                            lane="sched", kind="tokenwise", rid=req.rid,
-                            tokens=len(req.prompt) - b0)
-            # the final prime logits predict the first new token
-            firsts.append(int(logits[slot].argmax()))
-        return firsts
+        return [self._prime_by_decode(slot, req, int(begins[slot]), table)
+                for slot, req in admitted]
+
+    def _prime_by_decode(self, slot: int, req: Request, b0: int,
+                         table) -> int:
+        """Teacher-force ``req.prompt[b0:]`` through the decode step into
+        ``slot``; returns the first new token (the final step's argmax)."""
+        tr = self.tracer
+        logits = None
+        toks = self.tokens.copy()
+        t0 = time.monotonic_ns() if tr is not None else 0
+        for t in range(b0, len(req.prompt)):
+            toks[slot, 0] = int(req.prompt[t])
+            pos = self.pos.copy()
+            pos[slot] = t
+            logits = self._decode(toks, pos, self._mask(slot), table)
+            self.prefill_dispatches += 1
+        self.metrics.counter("prefill/dispatches").inc(len(req.prompt) - b0)
+        if tr is not None:
+            tr.add_span("prefill", t0, time.monotonic_ns(), lane="sched",
+                        kind="tokenwise", rid=req.rid,
+                        tokens=len(req.prompt) - b0)
+        return int(logits[slot].argmax())
 
     def _prime_chunked(self, admitted) -> List[int]:
         """Chunked batched prefill: every admitted prompt runs through
         ``model.prefill_into_slots`` together, ``prefill_chunk`` positions
-        per dispatch (tail chunks bucketed to powers of two).  The chunk
-        covering each prompt's last token yields its first new token.
-
-        Paged with prefix sharing uses a fixed chunk grid (full chunks at
-        aligned starts): a K/V row's bits then depend only on the token
-        prefix, never on this batch's chunk layout, so rows one request
-        wrote can be mapped by another.  Chunks below every slot's match
-        are skipped."""
+        per dispatch, full chunks at aligned starts (a fixed grid: a K/V
+        row's bits then depend only on the token prefix, never on this
+        batch's chunk layout, so streams do not depend on what a request
+        was admitted with, and paged rows one request wrote can be mapped
+        by another).  The chunk covering each prompt's last token yields
+        its first new token.  Paged with prefix sharing skips the chunks
+        below every slot's match.  A replay's ``decoded_tail`` is primed
+        through the decode step after the chunks."""
         tr = self.tracer
         paged = self.alloc is not None
         begins = (self._prime_begins(admitted) if paged
                   else np.zeros(self.slots, np.int32))
         table = self.alloc.table() if paged else None
-        fixed_grid = paged and self.alloc.share_prefix
+        skip_shared = paged and self.alloc.share_prefix
         lengths = np.zeros(self.slots, np.int32)
         for slot, req in admitted:
-            lengths[slot] = len(req.prompt)
+            lengths[slot] = len(req.prompt) - req.decoded_tail
         longest = int(lengths.max())
         firsts: Dict[int, int] = {}
         start = 0
-        if fixed_grid:
+        if skip_shared:
             start = (int(min(begins[s] for s, _ in admitted))
                      // self.prefill_chunk) * self.prefill_chunk
         while start < longest:
-            k = (self.prefill_chunk if fixed_grid else
-                 _chunk_bucket(min(self.prefill_chunk, longest - start),
-                               self.prefill_chunk))
+            k = self.prefill_chunk
             toks = np.zeros((self.slots, k), np.int32)
             for slot, req in admitted:
                 hi = min(len(req.prompt), start + k)
@@ -673,6 +712,13 @@ class DecodeServer:
                         nxt = logits.argmax(-1).cpu()
                     firsts[slot] = int(nxt[slot])
             start += k
+        tails = [(slot, req) for slot, req in admitted if req.decoded_tail]
+        if tails:
+            dev_table = self._table()
+            for slot, req in tails:
+                firsts[slot] = self._prime_by_decode(
+                    slot, req, max(int(lengths[slot]), int(begins[slot])),
+                    dev_table)
         return [firsts[slot] for slot, _ in admitted]
 
     def _finish(self, req: Request):
