@@ -176,6 +176,29 @@ What it does, failing (non-zero exit, no result line) on any error:
    launch counts reset just before each leg and read just after (decode
    attention and the swap kernel must launch); each replica's device
    memory at its peak, tokens per round, rounds to recover;
+24. the MoE family (the port's slice 11), ``granite-moe-3b-a800m`` (32
+   layers, 40 experts top-8, GQA 24 / 8 at head_dim 64): (a) the dense
+   and paged decode kernels at G = 3 against their plain versions (bf16
+   and f32 q, caches and pools; phase 2's and phase 10's checks) and
+   their times at B 8, contexts 200-900 of 1024, beside the bound, the
+   plain versions, SDPA and gather + SDPA; (b) at full width and 2
+   layers in f32, ``forward``, ``prefill_into_slots`` and ``decode_step``
+   logits of granite and ``qwen2-moe-a2.7b`` on the card within rtol
+   1e-4 of the largest CPU logit, the routes (top-k in order, keep)
+   equal; (c) ``python -m repro_torch.launch.train --arch
+   granite-moe-3b-a800m --reduce 0 --optimizer blockllm --batch 8 --seq
+   256 --steps 8`` with launch counts reset just before and read just
+   after (phase 16's loss gates, the aux loss > 0 at every step,
+   masked-Adam launches from the selections, peak memory), then
+   checkpoint -> crash -> resume -> export -> serve at 2 layers; (d)
+   ``python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
+   --reduce 0`` (bf16, kernel attention, base + 2 demo tenants, 16
+   requests over 8 slots x 16 new tokens), dense and ``--paged``, each
+   twice: streams complete and bitwise a second run, one decode
+   launch per layer per decode step, (token, slot) pairs dropped per
+   leg, paged streams bitwise a dense run of the same requests when
+   neither dropped a pair (else the first divergence and its top-2
+   margin); and a profile of the MoE decode step;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -192,6 +215,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -251,6 +275,15 @@ FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, 0),
 FLASH_MAIN = {"internlm2-1.8b": (2, 4096, 16, 8, 128, 0),
               "recurrentgemma-2b local": (2, 4096, 10, 1, 256, 2048)}
 LONG_BATCH, LONG_SEQ = 2, 4096     # phase 20
+# phase 24: the MoE family (slice 11)
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--reduce", "0", "--optimizer",
+                  "blockllm", "--batch", "8", "--seq", "256", "--steps", "8"]
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--reduce", "0", "--attn-impl",
+                  "kernel", "--demo-adapters", "2", "--slots", "8",
+                  "--max-seq", "256", "--requests", "16", "--new-tokens",
+                  "16"]
+MOE_LOGIT_RTOL = 1e-4     # card vs CPU, f32: relative to the largest logit
 
 
 def smi() -> str:
@@ -394,28 +427,45 @@ def ptxas_summary(log: str, want: str):
 # --------------------------------------------------------------------- #
 
 
-def check_decode_attention(torch, da, results):
-    dev = "cuda"
-    g = torch.Generator(dev).manual_seed(0)
-    B, C, KV, hd = 8, 2048, 8, 128
-    pos_main = [0, 127, 128, 1000, 2047, 513, 1536, 64]
-    cases = [  # name, G, C, window, ring, softcap, q dtype, cache dtype
-        ("main G2 bf16", 2, C, 0, False, 0.0, torch.bfloat16, torch.bfloat16),
-        ("G2 f32 q", 2, C, 0, False, 0.0, torch.float32, torch.bfloat16),
-        ("G1", 1, C, 0, False, 0.0, torch.float32, torch.bfloat16),
-        ("G4", 4, C, 0, False, 0.0, torch.float32, torch.bfloat16),
-        ("window 256", 2, C, 256, False, 0.0, torch.float32, torch.bfloat16),
-        ("ring C512", 2, 512, 512, True, 0.0, torch.float32, torch.bfloat16),
-        ("softcap 30", 2, C, 0, False, 30.0, torch.float32, torch.bfloat16),
-        ("f32 cache", 2, C, 0, False, 0.0, torch.float32, torch.float32),
-    ]
-    worst = 0.0
-    for name, G, Cc, window, ring, softcap, qd, cd in cases:
+# dense decode-attention checks: name, G, hd, C, window, ring, softcap,
+# q dtype, cache dtype
+DECODE_CASES = (
+    ("main G2 bf16", 2, 128, 2048, 0, False, 0.0, "bf16", "bf16"),
+    ("G2 f32 q", 2, 128, 2048, 0, False, 0.0, "f32", "bf16"),
+    ("G1", 1, 128, 2048, 0, False, 0.0, "f32", "bf16"),
+    ("G4", 4, 128, 2048, 0, False, 0.0, "f32", "bf16"),
+    ("window 256", 2, 128, 2048, 256, False, 0.0, "f32", "bf16"),
+    ("ring C512", 2, 128, 512, 512, True, 0.0, "f32", "bf16"),
+    ("softcap 30", 2, 128, 2048, 0, False, 30.0, "f32", "bf16"),
+    ("f32 cache", 2, 128, 2048, 0, False, 0.0, "f32", "f32"),
+)
+# phase 24: granite-moe-3b-a800m's decode shape (GQA 24 / 8, hd 64)
+DECODE_G3_CASES = (
+    ("G3 hd64 bf16", 3, 64, 1024, 0, False, 0.0, "bf16", "bf16"),
+    ("G3 hd64 f32 cache", 3, 64, 1024, 0, False, 0.0, "bf16", "f32"),
+    ("G3 hd64 f32 q", 3, 64, 1024, 0, False, 0.0, "f32", "bf16"),
+    ("G3 hd64 f32 q f32 cache", 3, 64, 1024, 0, False, 0.0, "f32", "f32"),
+)
+DECODE_POS = [0, 127, 128, 1000, 2047, 513, 1536, 64]   # clipped to C - 1
+
+
+def dtypes(torch):
+    return {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def decode_cases(torch, da, cases, g):
+    """The dense kernel against its plain version on each of ``cases``
+    (B 8, KV 8, q and caches drawn from ``g``).  Returns each case's
+    max |kernel - plain|."""
+    dev, B, KV, dt = "cuda", 8, 8, dtypes(torch)
+    errs = {}
+    for name, G, hd, C, window, ring, softcap, qs, cs in cases:
+        qd, cd = dt[qs], dt[cs]
         q = torch.randn(B, 1, KV * G, hd, generator=g, device=dev).to(qd)
-        k = torch.randn(B, Cc, KV, hd, generator=g, device=dev).to(cd)
-        v = torch.randn(B, Cc, KV, hd, generator=g, device=dev).to(cd)
+        k = torch.randn(B, C, KV, hd, generator=g, device=dev).to(cd)
+        v = torch.randn(B, C, KV, hd, generator=g, device=dev).to(cd)
         pos = ([0, 100, 511, 512, 900, 1500, 2047, 3000] if ring
-               else [min(p, Cc - 1) for p in pos_main])
+               else [min(p, C - 1) for p in DECODE_POS])
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
         kw = dict(window=window, ring=ring, softcap=softcap)
         o = da.decode_attention_cuda(q, k, v, pos, **kw)
@@ -429,30 +479,39 @@ def check_decode_attention(torch, da, results):
             tol = torch.full_like(err, ATTN_BF16_ATOL)
             tol_s = f"atol {ATTN_BF16_ATOL}"
         ok = bool((err <= tol).all()) and bool(torch.isfinite(o).all())
-        print(f"decode_attention [{name}] B{B} C{Cc} KV{KV} G{G} hd{hd} "
+        print(f"decode_attention [{name}] B{B} C{C} KV{KV} G{G} hd{hd} "
               f"q {str(qd)[6:]} cache {str(cd)[6:]}: max|kernel-plain| "
               f"{err.max().item():.3g} ({tol_s}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"decode_attention [{name}] disagrees "
                                  f"with its plain version")
-        if name.startswith("main"):
-            worst = err.max().item()
-    # times at the main path's shapes: ring of cache copies > L2
-    copies = 8
-    q = torch.randn(B, 1, KV * 2, hd, generator=g, device=dev).bfloat16()
+        errs[name] = err.max().item()
+    return errs
+
+
+def time_decode_attention(torch, da, results, g, *, G, hd, C, pos, worst,
+                          prefix=""):
+    """Device times of the dense kernel (B 8, KV 8, bf16) at contexts
+    ``pos`` of a ``C``-row cache beside its plain version, SDPA and the
+    bound; one launch per call; bitwise over launches and graph
+    replays.  The numbers go into ``results["decode_attention"]`` under
+    ``prefix``.  Returns q and the ring of cache copies."""
+    dev, B, KV = "cuda", 8, 8
+    copies = 8                                   # a ring of copies > L2
+    q = torch.randn(B, 1, KV * G, hd, generator=g, device=dev).bfloat16()
     ks = [torch.randn(B, C, KV, hd, generator=g, device=dev).bfloat16()
           for _ in range(copies)]
     vs = [torch.randn(B, C, KV, hd, generator=g, device=dev).bfloat16()
           for _ in range(copies)]
-    pos = torch.tensor(pos_main, dtype=torch.int32, device=dev)
-    valid = torch.arange(C, device=dev)[None, :] <= pos[:, None].long()
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    valid = torch.arange(C, device=dev)[None, :] <= pos_t[:, None].long()
     mask = valid[:, None, None, :]
     qt = q.transpose(1, 2)
     fns = {
         "kernel": lambda i: da.decode_attention_cuda(
-            q, ks[i % copies], vs[i % copies], pos),
+            q, ks[i % copies], vs[i % copies], pos_t),
         "plain": lambda i: da.decode_attention_plain(
-            q, ks[i % copies], vs[i % copies], pos),
+            q, ks[i % copies], vs[i % copies], pos_t),
         "sdpa": lambda i: torch.nn.functional.scaled_dot_product_attention(
             qt, ks[i % copies].transpose(1, 2),
             vs[i % copies].transpose(1, 2), attn_mask=mask,
@@ -461,48 +520,57 @@ def check_decode_attention(torch, da, results):
     # launch overhead included), each in turns
     dev_ms = {k: graph_time_ms(f) for k, f in fns.items()}
     eager_ms = {k: cuda_time_ms(f, 50) for k, f in fns.items()}
-    ms, plain_ms, lib_ms = dev_ms["kernel"], dev_ms["plain"], dev_ms["sdpa"]
     # bound: q read, each slot's K/V rows lo*bk..pos read once, o written
-    lo, hi = da.block_bounds(pos.cpu(), seq_len=C)
-    rows = sum(int(p) + 1 - int(l) * 128 for p, l in zip(pos.cpu(), lo))
+    lo, _ = da.block_bounds(pos_t.cpu(), seq_len=C)
+    rows = sum(int(p) + 1 - int(l) * 128 for p, l in zip(pos, lo))
     nbytes = 2 * q.nbytes + rows * KV * hd * 2 * 2
-    flops = rows * KV * 2 * hd * 4               # QK and PV, G = 2
+    flops = rows * KV * G * hd * 4               # QK and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    # one launch per call, at the timing case and at serving contexts of
-    # the main path's max_seq 1024; and bitwise over launches and replays
-    one_launch_profile(torch, "decode_attention", f"G2 hd{hd} C{C} pos "
-                       f"{pos_main}", fns["kernel"])
+    bound = max(t_bytes, t_ops)
+    one_launch_profile(torch, "decode_attention", f"G{G} hd{hd} C{C} pos "
+                       f"{pos}", fns["kernel"])
+    same = replay_bitwise(torch, lambda: fns["kernel"](0), fns["kernel"](0))
+    print(f"decode_attention [G{G} hd{hd} bf16] 3 back-to-back launches "
+          f"and 20 graph replays bitwise the first: {same}")
+    if not same:
+        raise AssertionError("decode_attention varies across launches")
+    results.setdefault("decode_attention", {}).update({
+        prefix + "max_abs_err": worst, prefix + "ms": dev_ms["kernel"],
+        prefix + "plain_ms": dev_ms["plain"], prefix + "bound_ms": bound,
+        prefix + "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        prefix + "library_ms": dev_ms["sdpa"]})
+    print(f"decode_attention time B{B} C{C} KV{KV} G{G} hd{hd} bf16, pos "
+          f"{pos}: device (graph replay) kernel {dev_ms['kernel']:.4f} ms, "
+          f"plain {dev_ms['plain']:.4f} ms, sdpa {dev_ms['sdpa']:.4f} ms; "
+          f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
+          f"{dev_ms['kernel'] / bound:.1f}x the bound; eager per call "
+          f"kernel {eager_ms['kernel']:.4f} ms, plain "
+          f"{eager_ms['plain']:.4f} ms, sdpa {eager_ms['sdpa']:.4f} ms")
+    return q, ks, vs
+
+
+def check_decode_attention(torch, da, results):
+    g = torch.Generator("cuda").manual_seed(0)
+    errs = decode_cases(torch, da, DECODE_CASES, g)
+    q, ks, vs = time_decode_attention(
+        torch, da, results, g, G=2, hd=128, C=2048, pos=DECODE_POS,
+        worst=errs["main G2 bf16"])
+    # one launch per call at serving contexts of the main path's max_seq
+    # 1024
     srv_pos = torch.tensor([351, 420, 500, 610, 700, 760, 800, 821],
-                           dtype=torch.int32, device=dev)
+                           dtype=torch.int32, device="cuda")
     k1 = [k[:, :1024].contiguous() for k in ks]
     v1 = [v[:, :1024].contiguous() for v in vs]
 
     def serving(i):
-        return da.decode_attention_cuda(q, k1[i % copies], v1[i % copies],
+        return da.decode_attention_cuda(q, k1[i % len(k1)], v1[i % len(v1)],
                                         srv_pos)
     srv_ms = graph_time_ms(serving)
-    one_launch_profile(torch, "decode_attention", f"G2 hd{hd} C1024 pos "
+    one_launch_profile(torch, "decode_attention", f"G2 hd128 C1024 pos "
                        f"{srv_pos.tolist()}", serving)
-    print(f"decode_attention time B{B} C1024 KV{KV} G2 hd{hd} bf16, pos "
+    print(f"decode_attention time B8 C1024 KV8 G2 hd128 bf16, pos "
           f"{srv_pos.tolist()}: device (graph replay) kernel {srv_ms:.4f} "
           f"ms")
-    del k1, v1
-    same = replay_bitwise(torch, lambda: fns["kernel"](0), fns["kernel"](0))
-    print(f"decode_attention [main G2 bf16] 3 back-to-back launches and 20 "
-          f"graph replays bitwise the first: {same}")
-    if not same:
-        raise AssertionError("decode_attention varies across launches")
-    results["decode_attention"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=lib_ms)
-    print(f"decode_attention time B{B} C{C} KV{KV} G2 hd{hd} bf16, pos "
-          f"{pos_main}: device (graph replay) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; bound "
-          f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB); eager per "
-          f"call kernel {eager_ms['kernel']:.4f} ms, plain "
-          f"{eager_ms['plain']:.4f} ms, sdpa {eager_ms['sdpa']:.4f} ms")
 
 
 def check_scatter_swap(torch, sa, results):
@@ -602,29 +670,40 @@ def gathered(torch, pool, tbl):
     return pool.view(P * ps, KV, hd)[ridx]
 
 
-def check_paged_decode_attention(torch, np, da, results):
-    """The fused paged kernel against its plain version (o within the
-    dense kernel's tolerance, pools bitwise outside the null page 0) and
-    against the dense kernel on the gathered view at equal block_k
-    (bitwise), then its time at the main path's shapes."""
-    bf16, f32 = torch.bfloat16, torch.float32
+# paged decode-attention checks: name, G, hd, q dtype, pool dtype,
+# window, softcap
+PAGED_CASES = (
+    ("main G2 hd128 bf16", 2, 128, "bf16", "bf16", 0, 0.0),
+    ("G1 f32 q", 1, 128, "f32", "bf16", 0, 0.0),
+    ("G8 hd64 f32 q", 8, 64, "f32", "bf16", 0, 0.0),
+    ("G2 hd64 bf16", 2, 64, "bf16", "bf16", 0, 0.0),
+    ("window 100", 2, 128, "f32", "bf16", 100, 0.0),
+    ("softcap 30", 2, 128, "f32", "bf16", 0, 30.0),
+    ("f32 pools", 2, 128, "f32", "f32", 0, 0.0),
+)
+# phase 24: granite-moe-3b-a800m's decode shape (GQA 24 / 8, hd 64)
+PAGED_G3_CASES = (
+    ("G3 hd64 bf16", 3, 64, "bf16", "bf16", 0, 0.0),
+    ("G3 hd64 f32 q", 3, 64, "f32", "bf16", 0, 0.0),
+    ("G3 hd64 f32 pools", 3, 64, "f32", "f32", 0, 0.0),
+)
+
+
+def paged_cases(torch, np, da, cases, seed):
+    """The fused paged kernel on each of ``cases`` against its plain
+    version (o within the dense kernel's tolerance, pools bitwise outside
+    the null page 0) and against the dense kernel on the gathered view at
+    equal block_k (bitwise).  Returns each case's max |kernel - plain|."""
+    f32, dt = torch.float32, dtypes(torch)
     # pos: first / last row of a page (16, 31, 47, 64, 1023), long and
     # short contexts; slots 3 and 7 inactive; 2, 6, 7 share prefix pages
     pos = [16, 31, 200, 511, 900, 1023, 47, 64]
     act = [True, True, True, False, True, True, True, False]
-    cases = [  # name, G, hd, q dtype, pool dtype, window, softcap
-        ("main G2 hd128 bf16", 2, 128, bf16, bf16, 0, 0.0),
-        ("G1 f32 q", 1, 128, f32, bf16, 0, 0.0),
-        ("G8 hd64 f32 q", 8, 64, f32, bf16, 0, 0.0),
-        ("G2 hd64 bf16", 2, 64, bf16, bf16, 0, 0.0),
-        ("window 100", 2, 128, f32, bf16, 100, 0.0),
-        ("softcap 30", 2, 128, f32, bf16, 0, 30.0),
-        ("f32 pools", 2, 128, f32, f32, 0, 0.0),
-    ]
-    worst = 0.0
-    for i, (name, G, hd, qd, pd, window, softcap) in enumerate(cases):
+    errs = {}
+    for i, (name, G, hd, qs, ps, window, softcap) in enumerate(cases):
+        qd, pd = dt[qs], dt[ps]
         x = paged_state(torch, np, G=G, hd=hd, qd=qd, pd=pd, pos=pos,
-                        act=act, shared=(2, 6, 7), seed=10 + i)
+                        act=act, shared=(2, 6, 7), seed=seed + i)
         kw = dict(window=window, softcap=softcap)
         kk, kv = x["kp"].clone(), x["vp"].clone()
         pk, pv = x["kp"].clone(), x["vp"].clone()
@@ -659,21 +738,31 @@ def check_paged_decode_attention(torch, np, da, results):
         if not ok:
             raise AssertionError(f"paged_decode_attention [{name}] "
                                  f"disagrees")
-        if name.startswith("main"):
-            worst = err.max().item()
-    time_paged_decode_attention(torch, np, da, results, worst)
+        errs[name] = err.max().item()
+    return errs
 
 
-def time_paged_decode_attention(torch, np, da, results, worst):
-    """Device times at the main path's shapes (B 8, KV 8, G 2, hd 128,
-    ps 16, contexts 200-900, bf16): the paged kernel, the dense kernel at
-    the same contexts, the plain version, and gather + SDPA (several
-    calls: no one PyTorch call computes the fused function)."""
-    B, KV, G, hd, ps, NP = 8, 8, 2, 128, PAGED_PS, PAGED_NP
-    ctx = [int(c) for c in np.random.default_rng(4).integers(200, 901, B)]
+def check_paged_decode_attention(torch, np, da, results):
+    """The paged kernel's checks (``paged_cases``), then its time at the
+    main path's shapes."""
+    errs = paged_cases(torch, np, da, PAGED_CASES, seed=10)
+    time_paged_decode_attention(torch, np, da, results,
+                                errs["main G2 hd128 bf16"], G=2, hd=128,
+                                seed=4)
+
+
+def time_paged_decode_attention(torch, np, da, results, worst, *, G, hd,
+                                seed, prefix=""):
+    """Device times (B 8, KV 8, ps 16, contexts 200-900 drawn from
+    ``seed``, bf16): the paged kernel, the dense kernel at the same
+    contexts, the plain version, and gather + SDPA (several calls: no
+    one PyTorch call computes the fused function).  The numbers go into
+    ``results["paged_decode_attention"]`` under ``prefix``."""
+    B, KV, ps, NP = 8, 8, PAGED_PS, PAGED_NP
+    ctx = [int(c) for c in np.random.default_rng(seed).integers(200, 901, B)]
     x = paged_state(torch, np, G=G, hd=hd, qd=torch.bfloat16,
                     pd=torch.bfloat16, pos=ctx, act=[True] * B, shared=(),
-                    seed=20)
+                    seed=seed)
     copies = 8                         # > L2 between launches
     kps = [x["kp"]] + [x["kp"].clone() for _ in range(copies - 1)]
     vps = [x["vp"]] + [x["vp"].clone() for _ in range(copies - 1)]
@@ -703,38 +792,42 @@ def time_paged_decode_attention(torch, np, da, results, worst):
         "gather+sdpa": library}
     dev_ms = {k: graph_time_ms(f) for k, f in fns.items()}
     eager_ms = {k: cuda_time_ms(f, 50) for k, f in fns.items()}
-    # bound: q, the new rows read; rows 0..pos-1 of K and V read once
-    # (row pos comes from the new row); o and the new rows written
     one_launch_profile(torch, "paged_decode_attention",
                        f"G{G} hd{hd} ps{ps} NP{NP} contexts {ctx}",
                        fns["kernel"])
     same = replay_bitwise(torch, lambda: fns["kernel"](0)[0],
                           fns["kernel"](0)[0])
-    print(f"paged_decode_attention [main G2 hd128 bf16] 3 back-to-back "
+    print(f"paged_decode_attention [G{G} hd{hd} bf16] 3 back-to-back "
           f"launches and 20 graph replays bitwise the first: {same}")
     if not same:
         raise AssertionError("paged_decode_attention varies across "
                              "launches")
+    # bound: q, the new rows read; rows 0..pos-1 of K and V read once
+    # (row pos comes from the new row); o and the new rows written
     rows = sum(ctx)
     nbytes = (2 * q.nbytes + 2 * (nk.nbytes + nv.nbytes)
               + rows * KV * hd * 2 * 2
               + sum(c // ps + 1 for c in ctx) * 4)     # the table slices
     flops = (rows + B) * KV * 2 * hd * 2 * G       # QK and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    results["paged_decode_attention"] = dict(
-        max_abs_err=worst, ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=dev_ms["gather+sdpa"])
+    bound = max(t_bytes, t_ops)
+    results.setdefault("paged_decode_attention", {}).update({
+        prefix + "max_abs_err": worst, prefix + "ms": dev_ms["kernel"],
+        prefix + "plain_ms": dev_ms["plain"], prefix + "bound_ms": bound,
+        prefix + "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        prefix + "library_ms": dev_ms["gather+sdpa"]})
     print(f"paged_decode_attention time B{B} KV{KV} G{G} hd{hd} ps{ps} "
           f"bf16, contexts {ctx}: device (graph replay) kernel "
           f"{dev_ms['kernel']:.4f} ms, dense kernel same contexts "
           f"{dev_ms['dense']:.4f} ms, plain {dev_ms['plain']:.4f} ms, "
           f"gather+sdpa (several calls) {dev_ms['gather+sdpa']:.4f} ms; "
-          f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB); "
-          f"eager per call kernel {eager_ms['kernel']:.4f} ms, dense "
+          f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
+          f"{dev_ms['kernel'] / bound:.1f}x the bound; eager per call "
+          f"kernel {eager_ms['kernel']:.4f} ms, dense "
           f"{eager_ms['dense']:.4f} ms, plain {eager_ms['plain']:.4f} ms, "
           f"gather+sdpa {eager_ms['gather+sdpa']:.4f} ms")
+    del kps, vps, cks, cvs
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -923,7 +1016,7 @@ def paged_vs_dense_steps(torch, np):
     torch.cuda.empty_cache()
 
 
-def profile_decode(torch, np, paged=False):
+def profile_decode(torch, np, paged=False, arch=ARCH):
     """Where a full-width decode step's time goes: 4 steady bf16 decode
     steps (``decode_stepper``: 8 slots, 300-900-token contexts, kernel
     attention; ``paged``: through 16-row pages and the fused paged
@@ -933,7 +1026,7 @@ def profile_decode(torch, np, paged=False):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     B = 8
     params = model_lib.init_params(
         cfg, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
@@ -953,8 +1046,9 @@ def profile_decode(torch, np, paged=False):
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    label = "paged" if paged else "dense"
-    print(f"decode step profile, {label} ({ARCH}, bf16, B{B}, contexts "
+    label = ("paged" if paged else "dense") + (
+        "" if arch == ARCH else f"_{arch}")
+    print(f"decode step profile, {label} ({arch}, bf16, B{B}, contexts "
           f"{int(lengths.min())}-{int(lengths.max())}, kernel attention, "
           f"{n} steps): wall {wall_ms:.2f} ms/step, device busy "
           f"{busy:.2f} ms/step, idle share "
@@ -983,7 +1077,7 @@ def profile_decode(torch, np, paged=False):
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=40))
     del params, step
-    return groups
+    return groups, wall_ms, busy
 
 # --------------------------------------------------------------------- #
 # phases 10-13: paged KV serving (slice 3)
@@ -2999,6 +3093,351 @@ def fleet_serving(torch, np, ops, card):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 24: the MoE family (slice 11)
+# --------------------------------------------------------------------- #
+
+
+def route_flips(np, card_log, cpu_log, k):
+    """Chunks and tokens whose routes (top-k in order, keep) differ
+    between two ``moe.RouteLog``s, with the CPU's probability margin at
+    the top-k boundary (k-th minus (k+1)-th probability)."""
+    flips = []
+    for c, ((ti, tk, _), (ci, ck, probs)) in enumerate(
+            zip(card_log.routes, cpu_log.routes)):
+        bad = ((ti != ci).any(-1) | (tk != ck).any(-1)).nonzero()[:, 0]
+        for t in bad.tolist()[:4]:
+            p = np.sort(probs[t].numpy())[::-1]
+            margin = p[k - 1] - p[k] if k < len(p) else float("nan")
+            flips.append(f"chunk {c} token {t}: card {ti[t].tolist()} "
+                         f"cpu {ci[t].tolist()}, margin {margin:.3g}")
+    return flips
+
+
+def moe_card_vs_cpu(torch, np):
+    """(b) Full width, 2 layers, f32: ``forward``, ``prefill_into_slots``
+    (4 slots, one idle, a 16-row chunk) and 4 ``decode_step``s (kernel
+    attention on the card, its plain version on the CPU) of
+    ``granite-moe-3b-a800m`` and ``qwen2-moe-a2.7b`` on the card against
+    the port's CPU run on the same weights: logits within rtol 1e-4 of
+    the largest logit, routes (top-k in order and the keep mask) equal;
+    a route that flips is printed with its probability margin."""
+    from repro_torch.checkpoint.checkpointer import tree_map
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    for arch in (MOE_ARCH, "qwen2-moe-a2.7b"):
+        t0 = time.monotonic()
+        cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+        params = model_lib.init_params(cfg, generator=torch.Generator(
+            "cuda").manual_seed(24), device="cuda")
+        host = tree_map(lambda a: a.cpu(), params)
+        rng = np.random.default_rng(24)
+        toks = rng.integers(0, cfg.vocab_size, (2, 16))
+        prompt = rng.integers(0, cfg.vocab_size, (4, 16))
+        lengths = np.asarray([16, 9, 0, 12], np.int32)
+        fed = rng.integers(0, cfg.vocab_size, (4, 4))
+
+        def run(dev, p):
+            outs, logs = [], []
+            with torch.no_grad():
+                with moe.route_log(keep_routes=True) as log:
+                    outs.append(model_lib.forward(
+                        p, cfg, torch.as_tensor(toks, device=dev),
+                        attn_impl="full"))
+                logs.append(log)
+                cache = model_lib.init_cache(cfg, 4, 32, dtype=torch.float32,
+                                             device=dev)
+                with moe.route_log(keep_routes=True) as log:
+                    lg, _ = model_lib.prefill_into_slots(
+                        p, cfg, cache, torch.as_tensor(prompt, device=dev),
+                        lengths)
+                outs.append(lg)
+                logs.append(log)
+                pos = lengths.copy()
+                act = torch.as_tensor(lengths > 0, device=dev)
+                with moe.route_log(keep_routes=True) as log:
+                    for t in fed:
+                        lg, _ = model_lib.decode_step(
+                            p, cfg, cache, torch.as_tensor(
+                                t[:, None], device=dev),
+                            torch.as_tensor(pos, device=dev),
+                            attn_impl="kernel", active=act)
+                        outs.append(lg)
+                        pos = pos + 1
+                logs.append(log)
+            return [o.float().cpu() for o in outs], logs
+
+        card, card_logs = run("cuda", params)
+        cpu, cpu_logs = run("cpu", host)
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(card, cpu)]
+        flips = []
+        for name, cl, hl in zip(("forward", "prefill", "decode"), card_logs,
+                                cpu_logs):
+            flips += [f"{name} {f}" for f in route_flips(
+                np, cl, hl, cfg.num_experts_per_tok)]
+        drops = [(cl.dropped, hl.dropped) for cl, hl in
+                 zip(card_logs, cpu_logs)]
+        ok = max(rel) <= MOE_LOGIT_RTOL and not flips
+        print(f"moe card vs CPU ({arch}, full width, 2 layers, f32, "
+              f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}): "
+              f"max|card-cpu| / max|cpu| forward {rel[0]:.2e}, prefill "
+              f"{rel[1]:.2e}, decode steps "
+              f"{[float(f'{r:.2e}') for r in rel[2:]]} (rtol "
+              f"{MOE_LOGIT_RTOL}); routes equal in "
+              f"{sum(len(l.routes) for l in cpu_logs)} chunks: "
+              f"{not flips}; drops (card, cpu) forward / prefill / decode "
+              f"{drops}; {time.monotonic() - t0:.1f} s "
+              f"{'ok' if ok else 'FAIL'}")
+        for f in flips[:8]:
+            print(f"  route flip: {f}")
+        if not ok:
+            raise AssertionError(f"{arch}: the card disagrees with the CPU")
+        del params, host
+        torch.cuda.empty_cache()
+
+
+def moe_train_main_path(torch, np, ops):
+    """(c) ``python -m repro_torch.launch.train --arch
+    granite-moe-3b-a800m --reduce 0 --optimizer blockllm --batch 8 --seq
+    256 --steps 8`` (full width and depth, f32 moments, the fused kernel)
+    with the launch counts reset just before and read just after: losses
+    finite, the first within 1.0 of ln(vocab), none 0.5 above it; the aux
+    loss of every step reported and > 0; masked-Adam launches one per
+    selected leaf per non-refresh step (the selections recorded as the
+    loop calls ``TrainerHandle.train_step``); peak device memory."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.trainers import api
+    print(f"moe train main path: python -m repro_torch.launch.train "
+          f"{' '.join(MOE_TRAIN_ARGV)}")
+    seen, peaks, auxes = [], [], []
+    step = api.TrainerHandle.train_step
+
+    def spy(self, batch):
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        m = self.state.meta
+        seen.append({"refresh": bool(m["needs_mask_refresh"]),
+                     "stacks": {k: list(v) for k, v in
+                                m["stack_idx"].items()},
+                     "leaves": len(_flatten_with_names(
+                         self.state.arrays["sel"])[1])})
+        out = step(self, batch)
+        auxes.append(out["aux"])
+        return out
+
+    api.TrainerHandle.train_step = spy
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        out = tlaunch.main(MOE_TRAIN_ARGV)
+    finally:
+        api.TrainerHandle.train_step = step
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peaks.append(torch.cuda.max_memory_allocated())
+    peak = max(peaks)
+    losses, step_ms = out["losses"], out["step_ms"]
+    rest = np.asarray(step_ms[1:])
+    cfg = out["trainer"].cfg
+    want_adam = sum(0 if s["refresh"] else s["leaves"] for s in seen)
+    p50 = float(np.percentile(rest, 50))
+    print(f"moe train main path: losses per step "
+          f"{[round(x, 4) for x in losses]} (first - ln V "
+          f"{losses[0] - np.log(cfg.vocab_size):+.3f}, largest rise over "
+          f"the first {max(losses) - losses[0]:+.4f}); aux per step "
+          f"{[round(a, 6) for a in auxes]}; step ms: refresh step "
+          f"{step_ms[0]:.1f}, the other {len(rest)} p50 {p50:.1f} p99 "
+          f"{np.percentile(rest, 99):.1f}; {wall:.1f} s wall including "
+          f"init; peak device memory {peak / 2 ** 30:.2f} GiB (init "
+          f"{peaks[0] / 2 ** 30:.2f}, per step "
+          f"{[round(x / 2 ** 30, 2) for x in peaks[1:]]})")
+    print(f"moe train main path: launches {launches}; selections "
+          f"{seen[0]['stacks']} then {seen[-1]['stacks']}, "
+          f"{seen[-1]['leaves']} leaves; masked_adam from the selections "
+          f"{want_adam}")
+    if not (np.isfinite(losses).all() and len(losses) == 8):
+        raise AssertionError("moe train main path: non-finite or missing "
+                             "loss")
+    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]:.3f} is not near "
+                             f"ln(vocab) = {np.log(cfg.vocab_size):.3f}")
+    if max(losses) > losses[0] + 0.5:
+        raise AssertionError("the loss rose more than 0.5 above the first")
+    if len(auxes) != 8 or not all(np.isfinite(a) and a > 0 for a in auxes):
+        raise AssertionError(f"the aux loss is missing or not > 0: {auxes}")
+    if launches["masked_adam"] != want_adam or want_adam == 0:
+        raise AssertionError("masked_adam did not launch once per selected "
+                             "leaf per (non-refresh) step")
+    report = out["trainer"].memory_report()
+    print(f"  memory_report blockllm (GiB): "
+          f"{ {k: round(v / 2 ** 30, 3) for k, v in report.items()} }")
+    del out
+    torch.cuda.empty_cache()
+    return launches, peak, p50
+
+
+def moe_serve_leg(torch, ops, run, count_routes=True):
+    """One serving run with the launch counts reset just before and read
+    just after; with ``count_routes``, routed pairs and drops counted
+    (a device sum per MoE layer per step: a run timed for its step p50
+    goes without).  ``run()`` returns ``(server, requests)``; the server
+    is kept for the next run."""
+    from repro_torch.models import moe
+    ops.reset_launches()
+    t0 = time.monotonic()
+    with (moe.route_log() if count_routes else nullcontext()) as log:
+        srv, reqs = run()
+        torch.cuda.synchronize()
+    st = srv.stats()
+    return dict(srv=srv, streams=[tuple(r.out) for r in reqs], reqs=reqs,
+                launches=dict(ops.LAUNCHES),
+                pairs=log.pairs if log else None,
+                dropped=log.dropped if log else None, steps=srv.steps,
+                wall=time.monotonic() - t0,
+                p50=st["decode"]["step_ms"]["p50"],
+                prefill=srv.prefill_dispatches,
+                hits=(st["kv"]["prefix_hit_pages"] if srv.alloc is not None
+                      else 0))
+
+
+def moe_rerun(srv, reqs, config=None):
+    """The same requests (prompts, tenants, budgets) through a fresh
+    ``DecodeServer`` over ``srv``'s base weights and tenants, with
+    ``srv``'s serving config unless ``config`` is given."""
+    import numpy as np
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    srv.restore_base()
+    new = DecodeServer(srv.cfg, srv.params, config or srv.config,
+                       registry=srv.registry)
+    out = [Request(rid=r.rid, prompt=np.asarray(r.prompt),
+                   max_new_tokens=r.max_new_tokens, adapter_id=r.adapter_id)
+           for r in reqs]
+    for r in out:
+        new.submit(r)
+    new.run_until_drained()
+    return new, out
+
+
+def moe_serving(torch, np, ops):
+    """(d) ``python -m repro_torch.launch.serve --arch
+    granite-moe-3b-a800m --reduce 0`` at full width and depth, bf16,
+    kernel attention (G = 3), base + 2 demo tenants, 16 requests over 8
+    slots x 16 new tokens, dense and ``--paged`` (a shared 24-token
+    system prompt).  Each launcher run is followed by a second run of
+    its requests on a fresh server over the same base weights and
+    tenants.  Gates: every stream complete; each leg bitwise its second
+    run; one decode-attention launch per layer per decode step in both
+    runs; paged streams bitwise a dense run of the same requests when
+    neither dropped a (token, slot) pair, else the first divergence and
+    its top-2 logit margin are printed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.runtime.serve_config import KVConfig
+    L = get_config(MOE_ARCH).num_layers
+    legs = {}
+    for name, argv in (("dense", MOE_SERVE_ARGV),
+                       ("paged", MOE_SERVE_ARGV + ["--paged"])):
+        print(f"moe serving ({name}): python -m repro_torch.launch.serve "
+              f"{' '.join(argv)}")
+        a = moe_serve_leg(torch, ops, lambda: serve.run(argv))
+        b = moe_serve_leg(torch, ops, lambda: moe_rerun(a["srv"], a["reqs"]),
+                          count_routes=False)
+        kern = "decode_attention" if name == "dense" else \
+            "paged_decode_attention"
+        other = "paged_decode_attention" if name == "dense" else \
+            "decode_attention"
+        complete = all(len(s) == 16 for s in a["streams"]) and \
+            len(a["streams"]) == 16
+        same = a["streams"] == b["streams"]
+        print(f"moe serving ({name}): {sum(map(len, a['streams']))} tokens, "
+              f"{a['steps']} decode steps, {a['prefill']} prefill "
+              f"dispatches, step ms p50 {a['p50']:.2f} with the routes "
+              f"counted ({b['p50']:.2f} in the second run, without), "
+              f"{a['wall']:.2f} s wall including init (second run "
+              f"{b['wall']:.2f}); launches {a['launches']}; (token, slot) "
+              f"pairs routed {a['pairs']}, dropped {a['dropped']}; prefix "
+              f"hits "
+              f"{a['hits']} pages; every stream complete {complete}; "
+              f"bitwise a second run: {same}")
+        fails = []
+        if not complete:
+            fails.append("incomplete streams")
+        if not same:
+            fails.append("differs from a second run of itself")
+        for r in (a, b):
+            if r["launches"][kern] != L * r["steps"] or r["launches"][other]:
+                fails.append(f"{kern} launches {r['launches'][kern]} != "
+                             f"{L} layers x {r['steps']} steps")
+            if not r["launches"]["scatter_swap"]:
+                fails.append("no swap")
+        if fails:
+            raise AssertionError(f"moe serving ({name}): {fails}")
+        del b
+        legs[name] = a
+    paged = legs["paged"]
+    del legs["dense"]["srv"]
+    torch.cuda.empty_cache()
+    dense = moe_serve_leg(torch, ops, lambda: moe_rerun(
+        paged["srv"], paged["reqs"],
+        paged["srv"].config.replace(kv=KVConfig())))
+    equal = paged["streams"] == dense["streams"]
+    print(f"moe serving: paged streams vs a dense run of the same requests "
+          f"(prefill chunk 64): equal {equal}; drops: paged "
+          f"{paged['dropped']}, dense {dense['dropped']}")
+    if paged["dropped"] == 0 and dense["dropped"] == 0 and not equal:
+        raise AssertionError("moe serving: paged streams differ from dense "
+                             "ones with no pair dropped")
+    if not equal:
+        srv = paged["srv"]
+        srv.restore_base()
+        want = {r.rid: s for r, s in zip(paged["reqs"], dense["streams"])}
+        where = first_divergence(torch, srv.cfg, srv.params, srv.registry,
+                                 paged["reqs"], want)
+        print(f"moe serving: first divergence of the paged leg from the "
+              f"dense run: {where}")
+    del paged["srv"], dense
+    torch.cuda.empty_cache()
+    return legs
+
+
+def moe_family(torch, np, ops, da, results, card):
+    """Phase 24: (a) decode attention at G = 3, (b) card vs CPU at 2
+    layers, (c) BlockLLM training at full width and depth, then crash ->
+    resume -> export -> serve at 2 layers, (d) serving at full width and
+    depth, dense and paged, and the MoE decode step's profile."""
+    t0 = time.monotonic()
+    g = torch.Generator("cuda").manual_seed(24)
+    errs = decode_cases(torch, da, DECODE_G3_CASES, g)
+    ctx = [int(c) for c in np.random.default_rng(24).integers(200, 901, 8)]
+    time_decode_attention(torch, da, results, g, G=3, hd=64, C=1024,
+                          pos=ctx, worst=errs["G3 hd64 bf16"], prefix="g3_")
+    errs = paged_cases(torch, np, da, PAGED_G3_CASES, seed=240)
+    time_paged_decode_attention(torch, np, da, results, errs["G3 hd64 bf16"],
+                                G=3, hd=64, seed=24, prefix="g3_")
+    torch.cuda.empty_cache()
+    moe_card_vs_cpu(torch, np)
+    t1 = time.monotonic()
+    launches, peak, p50 = moe_train_main_path(torch, np, ops)
+    checkpoint_export_serve(torch, np, ops, arch=MOE_ARCH, layers=2)
+    t2 = time.monotonic()
+    legs = moe_serving(torch, np, ops)
+    _, wall_ms, busy = profile_decode(torch, np, arch=MOE_ARCH)
+    torch.cuda.empty_cache()
+    print(f"phase 24 ({MOE_ARCH}): kernels and card vs CPU {t1 - t0:.1f} s, "
+          f"training and crash-resume-export-serve {t2 - t1:.1f} s, serving "
+          f"and profile {time.monotonic() - t2:.1f} s; training peak "
+          f"{peak / 2 ** 30:.2f} GiB, step p50 {p50:.1f} ms; decode step "
+          f"wall {wall_ms:.2f} ms, busy {busy:.2f} ms; drops dense "
+          f"{legs['dense']['dropped']} of {legs['dense']['pairs']}, paged "
+          f"{legs['paged']['dropped']} of {legs['paged']['pairs']} ({card})")
+    return launches, legs
+
+
 def main() -> int:
     try:
         import torch
@@ -3036,10 +3475,12 @@ def main() -> int:
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
         wants = {"decode_attention": ["Li128ELi2E",       # hd 128, G 2
+                                      "Li64ELi3E",        # hd 64, G 3
                                       "Li256ELi10E",      # f32 cache, G 10
                                       # bf16 cache, G 10: tensor cores
                                       "decode_attention_g10_mma_kernel"],
-                 "paged_decode_attention": ["Li128ELi2ELb1E"],
+                 "paged_decode_attention": ["Li128ELi2ELb1E",
+                                            "Li64ELi3ELb1E"],
                  "scatter_swap": ["scatter_swap"],
                  "rglru_scan": ["rglru_scan"],
                  # bf16 on the tensor cores at hd 128 and hd 256; f32
@@ -3140,7 +3581,7 @@ def main() -> int:
     f32_launches, peaks = train_api(torch, np, ops, q8_peak, q8_report,
                                     q8_p50)
 
-    # phase 9: checkpoint -> crash -> resume -> export -> serve
+    # phase 9: checkpoint -> crash -> resume -> export -> serve, 2 layers
     checkpoint_export_serve(torch, np, ops)
 
     # phase 10: the fused paged kernel against its plain version and the
@@ -3205,9 +3646,20 @@ def main() -> int:
     # phase 23: the serving fleet: one server's streams, the Router at 1
     # and 2 replicas, a kill with replay, failed registry reads
     fleet_launches = fleet_serving(torch, np, ops, card)
-    print(f"phase 23: {time.monotonic() - t2:.1f} s; fleet launches "
+    t3 = time.monotonic()
+    print(f"phase 23: {t3 - t2:.1f} s; fleet launches "
           f"(adapter_read_error leg) "
           f"{ {k: fleet_launches[k] for k in SERVE_KERNELS} } ({card})")
+
+    # phase 24: the MoE family: decode attention at G = 3, card vs CPU,
+    # BlockLLM training of granite-moe-3b-a800m, crash -> resume ->
+    # export -> serve, serving dense and paged
+    _, moe_legs = moe_family(torch, np, ops, da, results, card)
+    print(f"phase 24: {time.monotonic() - t3:.1f} s")
+    results["decode_attention"]["g3_launches"] = \
+        moe_legs["dense"]["launches"]["decode_attention"]
+    results["paged_decode_attention"]["g3_launches"] = \
+        moe_legs["paged"]["launches"]["paged_decode_attention"]
 
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the

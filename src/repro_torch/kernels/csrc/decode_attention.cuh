@@ -49,7 +49,9 @@
 //    (repeated kv heads are never materialized).  Over a bf16 cache
 //    (G <= 8) each warp takes 16-row steps on the tensor cores (`mma.sync`
 //    m16n8k16, f32 accumulators, bf16x3_mma.cuh): S^T = K . q^T with the 16
-//    keys as M and the heads as N, so nothing pads G to 16 rows, and q's
+//    keys as M and the heads as N, so nothing pads G to 16 rows (G < 8,
+//    as G = 3, fills G of N's 8 columns; the rest hold zero heads whose
+//    results are never written), and q's
 //    bf16 pieces read from shared memory (three exact pieces for f32 q);
 //    then O^T = V^T . P^T with P, through a small per-warp buffer, as three
 //    exact bf16 pieces (the products are exact, so P keeps its f32 value,
@@ -897,6 +899,9 @@ int dispatch_g(int G, const Args& a, cudaStream_t s) {
     case 2: return launch<TQ, TKV, HD, 2, PAGED>(a, s);
     case 4: return launch<TQ, TKV, HD, 4, PAGED>(a, s);
     case 8: return launch<TQ, TKV, HD, 8, PAGED>(a, s);
+    case 3:  // GQA 24 / 8 (granite-moe-3b-a800m), at its head_dim 64 only
+      if constexpr (HD == 64) return launch<TQ, TKV, HD, 3, PAGED>(a, s);
+      break;
     case 10:  // MQA with 10 query heads (recurrentgemma-2b), dense only
       if constexpr (!PAGED) return launch<TQ, TKV, HD, 10, PAGED>(a, s);
       break;

@@ -46,8 +46,9 @@ from repro_torch.kernels import build
 from repro_torch.models.layers import decode_valid
 
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-_KERNEL_GROUPS = (1, 2, 4, 8, 10)          # 10: the dense kernel only
-_PAGED_KERNEL_GROUPS = (1, 2, 4, 8)
+_KERNEL_GROUPS = (1, 2, 3, 4, 8, 10)       # 10: the dense kernel only
+_PAGED_KERNEL_GROUPS = (1, 2, 3, 4, 8)
+_G3_HEAD_DIMS = (64,)                      # G = 3 is built at head_dim 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # per (kernel, device): int32 arrival counts of the k-block partials of
 # each (slot, kv head), zeroed once; every launch leaves them zero
@@ -193,10 +194,12 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0, ring=False,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
     G = H // KV
-    if hd not in _KERNEL_HEAD_DIMS or G not in _KERNEL_GROUPS:
+    if hd not in _KERNEL_HEAD_DIMS or G not in _KERNEL_GROUPS or (
+            G == 3 and hd not in _G3_HEAD_DIMS):
         raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
-                         f"query heads per kv head in {_KERNEL_GROUPS}; got "
-                         f"head_dim {hd}, group {G}")
+                         f"query heads per kv head in {_KERNEL_GROUPS} (3 "
+                         f"at head_dim {_G3_HEAD_DIMS}); got head_dim {hd}, "
+                         f"group {G}")
     if (q.dtype not in _KERNEL_DTYPES or k_cache.dtype not in _KERNEL_DTYPES
             or v_cache.dtype != k_cache.dtype):
         raise ValueError(f"kernel takes f32/bf16 q and one f32/bf16 cache "
@@ -324,11 +327,12 @@ def paged_decode_attention_cuda(q, new_k, new_v, k_pool, v_pool, pos,
                          f", table {tuple(page_table.shape)}, active "
                          f"{tuple(active.shape)}")
     G = H // KV
-    if hd not in _KERNEL_HEAD_DIMS or G not in _PAGED_KERNEL_GROUPS:
+    if hd not in _KERNEL_HEAD_DIMS or G not in _PAGED_KERNEL_GROUPS or (
+            G == 3 and hd not in _G3_HEAD_DIMS):
         raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
                          f"query heads per kv head in "
-                         f"{_PAGED_KERNEL_GROUPS}; got head_dim {hd}, "
-                         f"group {G}")
+                         f"{_PAGED_KERNEL_GROUPS} (3 at head_dim "
+                         f"{_G3_HEAD_DIMS}); got head_dim {hd}, group {G}")
     if (q.dtype not in _KERNEL_DTYPES or k_pool.dtype not in _KERNEL_DTYPES
             or v_pool.dtype != k_pool.dtype):
         raise ValueError(f"kernel takes f32/bf16 q and one f32/bf16 pool "

@@ -1,8 +1,9 @@
 """Decoder: ``ModelConfig`` -> init / forward / loss / serving steps.
 
 Counterpart of ``repro.models.model`` for dense architectures (global
-and local attention blocks) and the hybrid RG-LRU family (recurrent
-blocks beside local attention, ``models/rglru.py``).  The
+and local attention blocks), the hybrid RG-LRU family (recurrent
+blocks beside local attention, ``models/rglru.py``) and the MoE family
+(attention blocks whose feed-forward is ``models/moe.py``).  The
 parameter tree keeps the JAX layout — ``stages[i]["posJ"][...]`` leaves
 stacked ``[G, ...]``, one row per layer — because adapters index those
 rows and the delta fingerprint hashes the leaf paths.  ``_stack_apply``
@@ -13,8 +14,13 @@ as in the JAX package (the delta fingerprint and the bit-exact revert
 depend on the f32 leaves).
 
 Training: ``loss_fn`` (next-token cross entropy, chunked over the
-sequence when ``S * V`` is large) takes BlockLLM's ``overlay`` of
-selected and probe rows, which replace their frozen rows layer by layer.
+sequence when ``S * V`` is large, plus the MoE router's aux loss summed
+over the layers) takes BlockLLM's ``overlay`` of selected and probe
+rows, which replace their frozen rows layer by layer.
+
+MoE blocks route every row they are given, in every mode: the padding
+and idle slots of a prefill chunk or a decode step take expert capacity
+as in the JAX package.
 
 Serving caches are updated in place (the JAX package donates them):
 the decode step writes row ``pos[b]`` of each slot, and a recurrent
@@ -32,8 +38,8 @@ indices of a prefill chunk are computed on the host once per chunk and
 shared by every layer; the decode step copies the page table to the
 device once.
 
-Other families (MoE, xLSTM, VLM, audio) are not ported yet (ROADMAP
-A9) and raise ``NotImplementedError``.
+Other families (xLSTM, VLM, audio) are not ported yet (ROADMAP queue
+A, "Other families") and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
                                       BLOCK_RECURRENT, ModelConfig)
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, moe, rglru
 
 Pytree = Any
 
@@ -69,18 +75,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures the port does not run yet: dense and
-    hybrid (RG-LRU) families with attention and recurrent blocks are
+    """Raise for architectures the port does not run yet: dense, hybrid
+    (RG-LRU) and MoE families with attention and recurrent blocks are
     ported."""
+    todo = "ROADMAP queue A, \"Other families\""
     why = None
-    if cfg.family not in ("dense", "hybrid") or cfg.num_experts:
-        why = f"family {cfg.family!r} (ROADMAP A9: other families)"
+    if cfg.family not in ("dense", "hybrid", "moe") or (
+            cfg.num_experts and cfg.family != "moe"):
+        why = f"family {cfg.family!r} ({todo})"
     elif cfg.is_encoder_decoder or cfg.vision_embed_dim:
-        why = "encoder-decoder / vision frontends (ROADMAP A9)"
+        why = f"encoder-decoder / vision frontends ({todo})"
     elif any(t not in PORTED_BLOCKS for t in cfg.layer_types()):
-        why = "mLSTM / sLSTM blocks (ROADMAP A9: other families)"
+        why = f"mLSTM / sLSTM blocks ({todo})"
     elif not cfg.rope_theta:
-        why = "absolute positions (ROADMAP A9: other families)"
+        why = f"absolute positions ({todo})"
     if why:
         raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
 
@@ -100,7 +108,8 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     values: JAX's PRNG is not reproduced).  Normal(0, 1) * 0.02
     embeddings and head, normal / sqrt(fan_in) projections with the
     depth-scaled output projections, zero norm scales; recurrent blocks
-    as ``rglru.rglru_init``."""
+    as ``rglru.rglru_init``, an MoE block's ``moe`` leaf (in place of
+    ``mlp``) as ``moe.moe_init``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(dev).manual_seed(0)
@@ -131,7 +140,10 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
                      "wk": normal((G, d, KV * hd), 1 / math.sqrt(d)),
                      "wv": normal((G, d, KV * hd), 1 / math.sqrt(d)),
                      "wo": normal((G, H * hd, d), out_scale)}
-        if f:
+        if cfg.num_experts:
+            p["moe"] = moe.moe_init(cfg, generator=gen, device=dev,
+                                    groups=G)
+        elif f:
             p["mlp"] = mlp(G)
         return p
 
@@ -466,13 +478,14 @@ def _recurrent_block_apply(cfg, params, x, *, mode, cache, active):
 
 def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
                  pos=None, attn_impl="full", active=None, page_table=None):
-    """One block.  ``mode``: ``train`` (full sequence, no cache),
+    """One block: ``(x, aux)``, ``aux`` the MoE router's aux loss (None
+    for other blocks).  ``mode``: ``train`` (full sequence, no cache),
     ``decode`` (one token, ``pos`` [B] write index; paged pools go
     through ``page_table`` [B, NP] on the device) or ``prefill_slots``
     (``pos`` = the chunk's ``PrefillRows``; attention blocks only)."""
     if btype == BLOCK_RECURRENT:
         return _recurrent_block_apply(cfg, params, x, mode=mode,
-                                      cache=cache, active=active)
+                                      cache=cache, active=active), None
     window = cfg.window_size if btype == BLOCK_LOCAL_ATTN else 0
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     B, S, D = h.shape
@@ -501,9 +514,14 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
         raise ValueError(f"unknown mode {mode!r}")
     x = x + o.reshape(B, S, H * hd) @ params["attn"]["wo"].to(x.dtype)
     h = layers.rms_norm(params["ln2"], x, cfg.norm_eps)
+    if "moe" in params:
+        # the aux loss only where a loss is taken: serving drops it
+        y, aux = moe.moe_apply(params["moe"], h, cfg,
+                               with_aux=mode == "train")
+        return x + y, aux
     if cfg.d_ff:
-        return x + layers.mlp_apply(params["mlp"], h, cfg.mlp_type)
-    return x
+        return x + layers.mlp_apply(params["mlp"], h, cfg.mlp_type), None
+    return x, None
 
 
 def _resolve_overlay(bp, g, ov):
@@ -529,12 +547,15 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                  pos=None, attn_impl="full", active=None, overlay=None,
                  page_table=None):
     """Apply the stacked blocks in order: a Python loop over the ``[G]``
-    rows of each stage (JAX scans them).  ``overlay``: optional
-    {"s{si}/pos{j}": ov} of BlockLLM active and probe rows (see
-    ``_resolve_overlay``).  In train mode with ``cfg.remat`` each block
-    is recomputed in the backward pass (``torch.utils.checkpoint``,
-    where JAX wraps the scan body in ``jax.checkpoint``)."""
+    rows of each stage (JAX scans them).  Returns ``(x, aux)``, the MoE
+    blocks' aux losses added in layer order (an f32 zero without MoE
+    blocks).  ``overlay``: optional {"s{si}/pos{j}": ov} of BlockLLM
+    active and probe rows (see ``_resolve_overlay``).  In train mode with
+    ``cfg.remat`` each block is recomputed in the backward pass
+    (``torch.utils.checkpoint``, where JAX wraps the scan body in
+    ``jax.checkpoint``)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (pattern, groups) in enumerate(cfg.stages()):
         sp = stage_params[si]
         for g in range(groups):
@@ -550,13 +571,15 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                           attn_impl=attn_impl, active=active,
                           page_table=page_table)
                 if remat:
-                    x = torch.utils.checkpoint.checkpoint(
+                    x, aux = torch.utils.checkpoint.checkpoint(
                         lambda h, bp=bp, btype=btype, kw=kw: _block_apply(
                             cfg, btype, bp, h, **kw), x,
                         use_reentrant=False)
                 else:
-                    x = _block_apply(cfg, btype, bp, x, **kw)
-    return x
+                    x, aux = _block_apply(cfg, btype, bp, x, **kw)
+                if aux is not None:
+                    aux_total = aux_total + aux
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -595,7 +618,8 @@ TRAIN_ATTN_IMPLS = ("full", "chunked")
 
 
 def _hidden(params, cfg, tokens, *, attn_impl, overlay=None):
-    """Final-norm hidden states [B, S, D] of a full-sequence pass."""
+    """Final-norm hidden states [B, S, D] of a full-sequence pass, and
+    the MoE aux loss."""
     check_supported(cfg)
     if attn_impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: full-sequence attention "
@@ -604,9 +628,9 @@ def _hidden(params, cfg, tokens, *, attn_impl, overlay=None):
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
-    x = _stack_apply(cfg, params["stages"], x, positions=positions,
-                     mode="train", overlay=overlay, attn_impl=attn_impl)
-    return layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x, aux = _stack_apply(cfg, params["stages"], x, positions=positions,
+                          mode="train", overlay=overlay, attn_impl=attn_impl)
+    return layers.rms_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(params, cfg: ModelConfig, tokens, *, overlay=None,
@@ -615,9 +639,9 @@ def forward(params, cfg: ModelConfig, tokens, *, overlay=None,
     ``chunked`` (the default, as JAX's ``forward``) runs
     ``layers.attention_chunked`` past 2048 tokens, ``full`` always
     ``attention_full``."""
-    return _unembed(params, cfg, _hidden(params, cfg, tokens,
-                                         overlay=overlay,
-                                         attn_impl=attn_impl))
+    hidden, _ = _hidden(params, cfg, tokens, overlay=overlay,
+                        attn_impl=attn_impl)
+    return _unembed(params, cfg, hidden)
 
 
 def _labels_mask(batch):
@@ -666,7 +690,8 @@ def _chunked_xent(params, cfg, hidden, labels, mask, chunk):
 
 def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
             loss_chunk=None, overlay=None):
-    """Next-token cross entropy.  Returns ``(loss, metrics)``.
+    """Next-token cross entropy plus the MoE aux loss (zero for other
+    families).  Returns ``(loss, metrics)``.
 
     ``loss_chunk``: None => auto (chunked when S * V > 2**27, as JAX);
     0 => direct.  ``attn_impl``: ``full`` or ``chunked`` (blockwise
@@ -676,8 +701,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
     labels, mask = _labels_mask(batch)
     if loss_chunk is None:
         loss_chunk = 512 if S * cfg.vocab_size > (1 << 27) else 0
-    hidden = _hidden(params, cfg, tokens, overlay=overlay,
-                     attn_impl=attn_impl)
+    hidden, aux = _hidden(params, cfg, tokens, overlay=overlay,
+                          attn_impl=attn_impl)
     if loss_chunk:
         nll_sum = _chunked_xent(params, cfg, hidden, labels, mask,
                                 loss_chunk)
@@ -686,7 +711,6 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
                                     mask)
     denom = torch.clamp(mask.sum(), min=1.0)
     nll = nll_sum / denom
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
     loss = nll + aux
     return loss, {"nll": nll, "aux": aux, "tokens": mask.sum()}
 
@@ -717,9 +741,9 @@ def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,
                        else _host(page_table),
                        begin=None if begin is None else _host(begin))
     x = _embed(params, cfg, tokens)
-    x = _stack_apply(cfg, params["stages"], x, positions=positions,
-                     mode="prefill_slots", caches=cache["stages"], pos=rows,
-                     attn_impl=attn_impl)
+    x, _ = _stack_apply(cfg, params["stages"], x, positions=positions,
+                        mode="prefill_slots", caches=cache["stages"],
+                        pos=rows, attn_impl=attn_impl)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     # unembed only each slot's last valid row of this chunk, through the
     # same [B, 1, D] matmul shape the decode path uses
@@ -795,9 +819,9 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=dev)
     x = _embed(params, cfg, token)
-    x = _stack_apply(cfg, params["stages"], x, positions=pos_b[:, None],
-                     mode="decode", caches=cache["stages"], pos=pos_b,
-                     attn_impl=attn_impl, active=active,
-                     page_table=page_table)
+    x, _ = _stack_apply(cfg, params["stages"], x, positions=pos_b[:, None],
+                        mode="decode", caches=cache["stages"], pos=pos_b,
+                        attn_impl=attn_impl, active=active,
+                        page_table=page_table)
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], cache

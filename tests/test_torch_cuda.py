@@ -92,7 +92,14 @@ def _same_bits_over_launches_and_replays(fn, ref):
      [1500]),
     (2, 0, False, 0.0, torch.bfloat16, 128, torch.bfloat16, 2048, 128,
      [0] * 8),
-    (2, 0, False, 0.0, torch.float32, 256, torch.float32, 2048, 128, POS8)])
+    (2, 0, False, 0.0, torch.float32, 256, torch.float32, 2048, 128, POS8),
+    # G = 3 at head_dim 64 (granite-moe-3b-a800m's GQA 24 / 8): tensor
+    # cores with 3 of 8 head columns used; the f32 cache's CUDA cores
+    (3, 0, False, 0.0, torch.bfloat16, 64, torch.bfloat16, 1024, 128,
+     [0, 127, 128, 1000, 1023, 513, 700, 64]),
+    (3, 0, False, 0.0, torch.float32, 64, torch.bfloat16, 2048, 128, POS8),
+    (3, 0, False, 0.0, torch.float32, 64, torch.float32, 1024, 128,
+     [0, 127, 128, 1000, 1023, 513, 700, 64])])
 def test_cuda_decode_attention_matches_plain(cuda_device, G, window, ring,
                                              softcap, qdt, hd, cdt, C,
                                              block_k, pos):
@@ -326,7 +333,11 @@ def _paged_state(dev, G, hd, qdt, pdt, seed=0, KV=8, ps=16, NP=64,
      [47, 48, 1055, 511, 900, 128, 127, 64]),
     (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 128, [700]),
     (2, 128, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 128, [0] * 8),
-    (2, 256, torch.float32, torch.float32, 0, 0.0, 16, 64, 128, PAGED_POS)])
+    (2, 256, torch.float32, torch.float32, 0, 0.0, 16, 64, 128, PAGED_POS),
+    # G = 3 at head_dim 64, bf16 and f32 pools
+    (3, 64, torch.bfloat16, torch.bfloat16, 0, 0.0, 16, 64, 128,
+     PAGED_POS),
+    (3, 64, torch.float32, torch.float32, 0, 0.0, 16, 64, 128, PAGED_POS)])
 def test_cuda_paged_decode_attention_matches_plain_and_dense(
         cuda_device, G, hd, qdt, pdt, window, softcap, ps, NP, block_k,
         pos):
@@ -662,4 +673,42 @@ def test_cuda_flash_attention_op_grads_equal_plain(cuda_device, dtype,
         o = ops.flash_attention(*ins, True, window, mode=mode)
         grads[mode] = torch.autograd.grad(o, ins, w)
     for a, b in zip(grads["auto"], grads["plain"]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_cuda_moe_routes_equal_cpu_and_grads_rerun_bitwise(cuda_device,
+                                                          arch):
+    """A reduced MoE on the card: ``moe_apply``'s routes (top-k in order,
+    the keep mask, with drops) equal the CPU's, its output within f32
+    rtol 1e-4 / atol 2e-5, and ``loss_fn``'s gradients bitwise equal over
+    two runs (no atomics in the dispatch and combine backward)."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config, reduce_config
+    from repro_torch.models import moe
+    cfg = reduce_config(get_config(arch), 4).replace(dtype="float32")
+    params = tmodel.init_params(cfg, generator=torch.Generator(
+        "cpu").manual_seed(0), device="cpu")
+    bp = tree_map(lambda a: a[0], params["stages"][0]["pos0"]["moe"])
+    x = torch.randn(2, 256, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
+    with moe.route_log(keep_routes=True) as cpu:
+        yc, _ = moe.moe_apply(bp, x, cfg, capacity=64)
+    with moe.route_log(keep_routes=True) as card:
+        yg, _ = moe.moe_apply(tree_map(lambda a: a.to(cuda_device), bp),
+                              x.to(cuda_device), cfg, capacity=64)
+    assert card.dropped == cpu.dropped > 0
+    for (ti, tk, _), (ci, ck, _) in zip(card.routes, cpu.routes):
+        assert torch.equal(ti, ci) and torch.equal(tk, ck)
+    torch.testing.assert_close(yg.cpu(), yc, **F32_TOL)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64),
+                         generator=torch.Generator().manual_seed(1))
+    pg = tree_map(lambda a: a.to(cuda_device).requires_grad_(), params)
+    leaves = _flatten_with_names(pg)[1]
+    grads = []
+    for _ in range(2):
+        loss, _ = tmodel.loss_fn(pg, cfg, {"tokens": toks.to(cuda_device)})
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(*grads):
         assert torch.equal(_bits(a), _bits(b))

@@ -212,10 +212,31 @@ def test_inactive_slot_cache_rows_stay_bit_exact(tiny_cfg):
 
 
 def test_unported_families_raise():
-    for arch in ("qwen2-moe-a2.7b", "xlstm-1.3b", "whisper-large-v3"):
+    for arch in ("pixtral-12b", "xlstm-1.3b", "whisper-large-v3"):
         cfg = tconfigs.reduce_config(tconfigs.get_config(arch), 8)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmodel.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_moe_archs_init_and_forward(arch):
+    """Both MoE archs, reduced, init with an ``moe`` leaf per block (a
+    shared expert where the config has one) and run ``forward`` on the
+    CPU: finite logits of the expected shape and a positive aux loss."""
+    cfg = tconfigs.reduce_config(tconfigs.get_config(arch), 8)
+    tmodel.check_supported(cfg)
+    params = tmodel.init_params(cfg, device="cpu")
+    blk = params["stages"][0]["pos0"]
+    assert "moe" in blk and "mlp" not in blk
+    assert ("shared" in blk["moe"]) == bool(cfg.shared_expert_d_ff)
+    G, E = cfg.num_layers, cfg.num_experts
+    assert blk["moe"]["w_gate"].shape == (G, E, cfg.d_model, cfg.moe_d_ff)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    logits = tmodel.forward(params, cfg, toks)
+    _, metrics = tmodel.loss_fn(params, cfg, {"tokens": toks})
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and metrics["aux"].item() > 0
 
 
 @pytest.mark.parametrize("loss_chunk,labels,remat", [

@@ -194,8 +194,8 @@ def test_port_imports_neither_jax_nor_repro():
     """Importing every module of the port (and chip_smoke.py) in a fresh
     interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
     training slice's, the paged serving slice's, the RG-LRU slice's, the
-    flash-attention slice's, the AdapterCache's, the baselines' and the
-    serving fleet's modules are among them."""
+    flash-attention slice's, the AdapterCache's, the baselines', the
+    serving fleet's and the MoE family's modules are among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -219,7 +219,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    'adapters.device_cache', 'baselines.galore', 'baselines.lora',\n"
         "    'baselines.badam', 'trainers.galore', 'trainers.lora',\n"
         "    'trainers.badam', 'runtime.elastic', 'runtime.fleet',\n"
-        "    'launch.fleet')}\n"
+        "    'launch.fleet', 'models.moe')}\n"
         "missing = sorted(need - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 55 else 0)\n")
