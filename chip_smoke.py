@@ -199,6 +199,24 @@ What it does, failing (non-zero exit, no result line) on any error:
    leg, paged streams bitwise a dense run of the same requests when
    neither dropped a pair (else the first divergence and its top-2
    margin); and a profile of the MoE decode step;
+25. the xLSTM family (the port's slice 12), ``xlstm-1.3b`` (48 blocks,
+   7 mLSTM : 1 sLSTM, d_model 2048, 4 heads, no attention): (a) at full
+   width and 8 layers (one pattern) in f32, ``forward`` at B 2, S 512
+   (two mLSTM chunks) and 8 ``decode_step``s from a fresh cache on the
+   card within rtol 1e-4 of the largest CPU logit; (b) ``python -m
+   repro_torch.launch.train --arch xlstm-1.3b --reduce 0 --optimizer
+   blockllm --batch 8 --seq 256 --steps 8`` at full width and depth with
+   launch counts reset just before and read just after (phase 16's loss
+   gates, masked-Adam launches from the selections, peak memory, step
+   p50); (c) checkpoint -> crash -> resume -> export -> serve at 8
+   layers (2 slots, so a slot is reused: its stream equals a fresh
+   server's; no decode-attention launch); (d) ``python -m
+   repro_torch.launch.serve --arch xlstm-1.3b --reduce 0`` (bf16, base +
+   2 demo tenants, 16 requests over 8 slots x 16 new tokens, per-token
+   priming) and a second run of its requests: streams complete and
+   bitwise the second run, swap launches counted, no decode-attention
+   launch, the first request admitted into a reused slot equal to a
+   fresh server's stream; and a profile of the xLSTM decode step;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -284,6 +302,15 @@ MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--reduce", "0", "--attn-impl",
                   "--max-seq", "256", "--requests", "16", "--new-tokens",
                   "16"]
 MOE_LOGIT_RTOL = 1e-4     # card vs CPU, f32: relative to the largest logit
+# phase 25: the xLSTM family (slice 12)
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_TRAIN_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--optimizer",
+                    "blockllm", "--batch", "8", "--seq", "256", "--steps",
+                    "8"]
+XLSTM_SERVE_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--demo-adapters",
+                    "2", "--slots", "8", "--max-seq", "256", "--requests",
+                    "16", "--new-tokens", "16"]
+XLSTM_LOGIT_RTOL = 1e-4   # card vs CPU, f32: relative to the largest logit
 
 
 def smi() -> str:
@@ -946,15 +973,27 @@ def decode_stepper(torch, np, cfg, params, paged):
 
     rng = np.random.default_rng(3)
     B, max_seq = 8, 1024
-    lengths = rng.integers(300, 900, B)
-    prompt = rng.integers(0, cfg.vocab_size, (B, int(lengths.max())))
     kw, table = {}, None
+    if not model_lib.supports_slot_prefill(cfg):
+        # an xLSTM state is one size at every context: prime 8 tokens
+        # per slot through the decode step, as the server does
+        lengths = np.full(B, 8)
+        cache = model_lib.init_cache(cfg, B, max_seq, device="cuda")
+        for t, col in enumerate(rng.integers(0, cfg.vocab_size, (8, B))):
+            model_lib.decode_step(
+                params, cfg, cache, torch.as_tensor(col[:, None],
+                                                    device="cuda"),
+                torch.full((B,), t, dtype=torch.int32, device="cuda"))
+        prompt = np.zeros((B, 0), np.int64)
+    else:
+        lengths = rng.integers(300, 900, B)
+        prompt = rng.integers(0, cfg.vocab_size, (B, int(lengths.max())))
     if paged:
         table = (1 + np.arange(B * PAGED_NP)).reshape(B, PAGED_NP)
         cache = model_lib.init_paged_cache(cfg, B, B * PAGED_NP + 1,
                                            PAGED_PS, max_seq, device="cuda")
         kw = dict(page_table=table, begin=np.zeros(B, np.int32))
-    else:
+    elif prompt.shape[1]:
         cache = model_lib.init_cache(cfg, B, max_seq, device="cuda")
     for s in range(0, prompt.shape[1], 128):
         model_lib.prefill_into_slots(
@@ -1714,7 +1753,8 @@ def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
     priming included), and the last request, in a reused slot, must give
     the stream a fresh server gives it.  The swap kernel must launch
     exactly when the delta has row entries (a leaf whose every row
-    trained is exported, and swapped in, whole)."""
+    trained is exported, and swapped in, whole).  A model without
+    attention (xLSTM) must launch no decode attention."""
     import shutil
     from repro_torch import trainers
     from repro_torch.adapters import AdapterRegistry, copy_tree
@@ -1806,6 +1846,7 @@ def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
     launches = dict(ops.LAUNCHES)
     want, _ = serve(resumed.merged_params(), None, None, prompts)
     ok = got == want and all(len(o) == 16 for o in got)
+    n_attn = sum(t in ("global", "local") for t in cfg.layer_types())
     # a leaf whose every row trained is exported (and swapped in) whole;
     # the others as row entries, through the swap kernel
     row_entries = sum(e.idx is not None for e in delta.entries.values())
@@ -1813,19 +1854,18 @@ def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
           f"slots, kernel attention; the delta holds {row_entries} row "
           f"entries of {len(delta.entries)}): launches {launches}; tokens "
           f"equal a server with the trained rows written in: {ok}")
-    if not ok or not launches["decode_attention"] \
+    if not ok or bool(launches["decode_attention"]) != bool(n_attn) \
             or bool(launches["scatter_swap"]) != bool(row_entries):
         raise AssertionError("the served tenant disagrees, or a serving "
                              "kernel did not launch")
     if not model_lib.supports_slot_prefill(cfg):
-        n_local = sum(t != "recurrent" for t in cfg.layer_types())
         fresh, _ = serve(params0, registry, "tuned", prompts[-1:])
         print(f"  per-token priming: {passes} decode passes (priming "
-              f"included) x {n_local} local-attention layers = "
-              f"{passes * n_local} decode_attention launches, counted "
+              f"included) x {n_attn} attention layers = "
+              f"{passes * n_attn} decode_attention launches, counted "
               f"{launches['decode_attention']}; the last request (a reused "
               f"slot) equals a fresh server's stream: {fresh[0] == got[-1]}")
-        if launches["decode_attention"] != passes * n_local:
+        if launches["decode_attention"] != passes * n_attn:
             raise AssertionError("decode_attention launches are not one "
                                  "per local layer per decode pass")
         if fresh[0] != got[-1]:
@@ -3198,20 +3238,23 @@ def moe_card_vs_cpu(torch, np):
         torch.cuda.empty_cache()
 
 
-def moe_train_main_path(torch, np, ops):
-    """(c) ``python -m repro_torch.launch.train --arch
-    granite-moe-3b-a800m --reduce 0 --optimizer blockllm --batch 8 --seq
-    256 --steps 8`` (full width and depth, f32 moments, the fused kernel)
-    with the launch counts reset just before and read just after: losses
-    finite, the first within 1.0 of ln(vocab), none 0.5 above it; the aux
-    loss of every step reported and > 0; masked-Adam launches one per
-    selected leaf per non-refresh step (the selections recorded as the
-    loop calls ``TrainerHandle.train_step``); peak device memory."""
+def family_train_main_path(torch, np, ops, argv=MOE_TRAIN_ARGV,
+                           label="moe"):
+    """``python -m repro_torch.launch.train`` with ``argv`` (phase 24 (c):
+    ``--arch granite-moe-3b-a800m --reduce 0 --optimizer blockllm --batch
+    8 --seq 256 --steps 8``; phase 25 (b): ``xlstm-1.3b`` likewise; full
+    width and depth, f32 moments, the fused kernel) with the launch
+    counts reset just before and read just after: losses finite, the
+    first within 1.0 of ln(vocab), none 0.5 above it; the aux loss of
+    every step reported, > 0 for an MoE model and 0 without one;
+    masked-Adam launches one per selected leaf per non-refresh step (the
+    selections recorded as the loop calls ``TrainerHandle.train_step``);
+    peak device memory."""
     from repro_torch.checkpoint.checkpointer import _flatten_with_names
     from repro_torch.launch import train as tlaunch
     from repro_torch.trainers import api
-    print(f"moe train main path: python -m repro_torch.launch.train "
-          f"{' '.join(MOE_TRAIN_ARGV)}")
+    print(f"{label} train main path: python -m repro_torch.launch.train "
+          f"{' '.join(argv)}")
     seen, peaks, auxes = [], [], []
     step = api.TrainerHandle.train_step
 
@@ -3233,7 +3276,7 @@ def moe_train_main_path(torch, np, ops):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     try:
-        out = tlaunch.main(MOE_TRAIN_ARGV)
+        out = tlaunch.main(argv)
     finally:
         api.TrainerHandle.train_step = step
     torch.cuda.synchronize()
@@ -3246,7 +3289,7 @@ def moe_train_main_path(torch, np, ops):
     cfg = out["trainer"].cfg
     want_adam = sum(0 if s["refresh"] else s["leaves"] for s in seen)
     p50 = float(np.percentile(rest, 50))
-    print(f"moe train main path: losses per step "
+    print(f"{label} train main path: losses per step "
           f"{[round(x, 4) for x in losses]} (first - ln V "
           f"{losses[0] - np.log(cfg.vocab_size):+.3f}, largest rise over "
           f"the first {max(losses) - losses[0]:+.4f}); aux per step "
@@ -3256,20 +3299,23 @@ def moe_train_main_path(torch, np, ops):
           f"init; peak device memory {peak / 2 ** 30:.2f} GiB (init "
           f"{peaks[0] / 2 ** 30:.2f}, per step "
           f"{[round(x / 2 ** 30, 2) for x in peaks[1:]]})")
-    print(f"moe train main path: launches {launches}; selections "
+    print(f"{label} train main path: launches {launches}; selections "
           f"{seen[0]['stacks']} then {seen[-1]['stacks']}, "
           f"{seen[-1]['leaves']} leaves; masked_adam from the selections "
           f"{want_adam}")
     if not (np.isfinite(losses).all() and len(losses) == 8):
-        raise AssertionError("moe train main path: non-finite or missing "
-                             "loss")
+        raise AssertionError(f"{label} train main path: non-finite or "
+                             f"missing loss")
     if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
         raise AssertionError(f"first loss {losses[0]:.3f} is not near "
                              f"ln(vocab) = {np.log(cfg.vocab_size):.3f}")
     if max(losses) > losses[0] + 0.5:
         raise AssertionError("the loss rose more than 0.5 above the first")
-    if len(auxes) != 8 or not all(np.isfinite(a) and a > 0 for a in auxes):
-        raise AssertionError(f"the aux loss is missing or not > 0: {auxes}")
+    moe_model = bool(cfg.num_experts)
+    if len(auxes) != 8 or not all(np.isfinite(a) and (a > 0) == moe_model
+                                  for a in auxes):
+        raise AssertionError(f"the aux loss is missing, or not > 0 with "
+                             f"experts and 0 without: {auxes}")
     if launches["masked_adam"] != want_adam or want_adam == 0:
         raise AssertionError("masked_adam did not launch once per selected "
                              "leaf per (non-refresh) step")
@@ -3422,7 +3468,7 @@ def moe_family(torch, np, ops, da, results, card):
     torch.cuda.empty_cache()
     moe_card_vs_cpu(torch, np)
     t1 = time.monotonic()
-    launches, peak, p50 = moe_train_main_path(torch, np, ops)
+    launches, peak, p50 = family_train_main_path(torch, np, ops)
     checkpoint_export_serve(torch, np, ops, arch=MOE_ARCH, layers=2)
     t2 = time.monotonic()
     legs = moe_serving(torch, np, ops)
@@ -3436,6 +3482,166 @@ def moe_family(torch, np, ops, da, results, card):
           f"{legs['dense']['dropped']} of {legs['dense']['pairs']}, paged "
           f"{legs['paged']['dropped']} of {legs['paged']['pairs']} ({card})")
     return launches, legs
+
+# --------------------------------------------------------------------- #
+# phase 25: the xLSTM family (slice 12)
+# --------------------------------------------------------------------- #
+
+
+def xlstm_card_vs_cpu(torch, np):
+    """(a) Full width, 8 layers (one pattern: 7 mLSTM + 1 sLSTM), f32:
+    ``forward`` at B 2, S 512 (two 256-token mLSTM chunks, a 512-step
+    sLSTM loop) and 8 ``decode_step``s from a fresh cache, on the card
+    against the port's CPU run on the same weights: logits within rtol
+    1e-4 of the largest CPU logit."""
+    from repro_torch.checkpoint.checkpointer import tree_map
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    t0 = time.monotonic()
+    cfg = get_config(XLSTM_ARCH).replace(num_layers=8, dtype="float32")
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(25), device="cuda")
+    host = tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(25)
+    toks = rng.integers(0, cfg.vocab_size, (2, 512))
+    fed = rng.integers(0, cfg.vocab_size, (8, 2, 1))
+
+    def run(dev, p):
+        with torch.no_grad():
+            outs = [model_lib.forward(p, cfg, torch.as_tensor(toks,
+                                                              device=dev))]
+            cache = model_lib.init_cache(cfg, 2, 16, dtype=torch.float32,
+                                         device=dev)
+            for t, tok in enumerate(fed):
+                lg, _ = model_lib.decode_step(
+                    p, cfg, cache, torch.as_tensor(tok, device=dev),
+                    torch.full((2,), t, dtype=torch.int32, device=dev))
+                outs.append(lg)
+        return [o.float().cpu() for o in outs]
+
+    card = run("cuda", params)
+    t1 = time.monotonic()
+    cpu = run("cpu", host)
+    rel = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(card, cpu)]
+    ok = max(rel) <= XLSTM_LOGIT_RTOL and all(
+        bool(torch.isfinite(a).all()) for a in card)
+    print(f"xlstm card vs CPU ({XLSTM_ARCH}, full width, 8 layers "
+          f"{cfg.stages()}, f32): max|card-cpu| / max|cpu| forward (B 2, "
+          f"S 512) {rel[0]:.2e}, decode steps "
+          f"{[float(f'{r:.2e}') for r in rel[1:]]} (rtol "
+          f"{XLSTM_LOGIT_RTOL}); card {t1 - t0:.1f} s with init, CPU "
+          f"{time.monotonic() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("xlstm: the card disagrees with the CPU")
+    del params, host
+    torch.cuda.empty_cache()
+
+
+def xlstm_serving(torch, np, ops):
+    """(d) ``python -m repro_torch.launch.serve --arch xlstm-1.3b
+    --reduce 0`` at full width and depth, bf16, base + 2 demo tenants,
+    16 requests over 8 slots x 16 new tokens (per-token priming), then a
+    second run of its requests on a fresh server over the same base
+    weights and tenants, then the first request admitted into a slot an
+    earlier request used, alone on a fresh server.  Gates: every stream
+    complete; bitwise the second run; the reused slot's stream equal to
+    the fresh server's; the swap kernel launched in both runs, no decode
+    attention; one priming dispatch per prompt token."""
+    from repro_torch.runtime import serve_loop
+    from repro_torch.launch import serve
+    print(f"xlstm serving: python -m repro_torch.launch.serve "
+          f"{' '.join(XLSTM_SERVE_ARGV)}")
+    admitted = []
+    prime = serve_loop.DecodeServer._prime_tokenwise
+
+    def spy(self, adm):
+        admitted.append([(slot, req.rid) for slot, req in adm])
+        return prime(self, adm)
+
+    serve_loop.DecodeServer._prime_tokenwise = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        a = moe_serve_leg(torch, ops, lambda: serve.run(XLSTM_SERVE_ARGV),
+                          count_routes=False)
+    finally:
+        serve_loop.DecodeServer._prime_tokenwise = prime
+    peak = torch.cuda.max_memory_allocated()
+    b = moe_serve_leg(torch, ops, lambda: moe_rerun(a["srv"], a["reqs"]),
+                      count_routes=False)
+    del b["srv"]
+    used, reused = set(), None
+    for wave in admitted:
+        for slot, rid in wave:
+            if slot in used and reused is None:
+                reused = rid
+            used.add(slot)
+    req = next(r for r in a["reqs"] if r.rid == reused)
+    alone = moe_serve_leg(torch, ops, lambda: moe_rerun(a["srv"], [req]),
+                          count_routes=False)
+    del alone["srv"]
+    prompt_tokens = sum(len(r.prompt) for r in a["reqs"])
+    complete = len(a["streams"]) == 16 and all(len(s) == 16
+                                               for s in a["streams"])
+    same = a["streams"] == b["streams"]
+    fresh = alone["streams"][0] == tuple(req.out)
+    print(f"xlstm serving: {sum(map(len, a['streams']))} tokens, "
+          f"{a['steps']} decode steps, {a['prefill']} priming dispatches for "
+          f"{prompt_tokens} prompt tokens, step ms p50 {a['p50']:.2f} (second "
+          f"run {b['p50']:.2f}), {a['wall']:.2f} s wall including init "
+          f"(second run {b['wall']:.2f}); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {a['launches']} (second run "
+          f"{b['launches']}); every stream complete {complete}; bitwise a "
+          f"second run: {same}; rid {reused} (admitted into a reused slot) "
+          f"equals a fresh server's stream: {fresh}")
+    fails = []
+    if not complete:
+        fails.append("incomplete streams")
+    if not same:
+        fails.append("differs from a second run of itself")
+    if not fresh:
+        fails.append("a reused slot differs from a fresh server")
+    if a["prefill"] != prompt_tokens:
+        fails.append("not one priming dispatch per prompt token")
+    for r in (a, b):
+        if not r["launches"]["scatter_swap"]:
+            fails.append("no swap")
+        if r["launches"]["decode_attention"] or \
+                r["launches"]["paged_decode_attention"]:
+            fails.append("a decode-attention launch in a model without "
+                         "attention")
+    if fails:
+        raise AssertionError(f"xlstm serving: {fails}")
+    del a["srv"]
+    torch.cuda.empty_cache()
+    return a
+
+
+def xlstm_family(torch, np, ops, card):
+    """Phase 25: (a) card vs CPU at 8 layers, (b) BlockLLM training at
+    full width and depth, (c) crash -> resume -> export -> serve at 8
+    layers, (d) serving at full width and depth and the xLSTM decode
+    step's profile."""
+    t0 = time.monotonic()
+    xlstm_card_vs_cpu(torch, np)
+    t1 = time.monotonic()
+    launches, peak, p50 = family_train_main_path(
+        torch, np, ops, argv=XLSTM_TRAIN_ARGV, label="xlstm")
+    t2 = time.monotonic()
+    checkpoint_export_serve(torch, np, ops, arch=XLSTM_ARCH, layers=8,
+                            slots=2)
+    t3 = time.monotonic()
+    leg = xlstm_serving(torch, np, ops)
+    groups, wall_ms, busy = profile_decode(torch, np, arch=XLSTM_ARCH)
+    torch.cuda.empty_cache()
+    print(f"phase 25 ({XLSTM_ARCH}): card vs CPU {t1 - t0:.1f} s, training "
+          f"{t2 - t1:.1f} s, crash-resume-export-serve {t3 - t2:.1f} s, "
+          f"serving and profile {time.monotonic() - t3:.1f} s; training "
+          f"peak {peak / 2 ** 30:.2f} GiB, step p50 {p50:.1f} ms; serving "
+          f"step p50 {leg['p50']:.2f} ms; decode step wall {wall_ms:.2f} ms, "
+          f"busy {busy:.2f} ms, idle {max(0.0, 1 - busy / wall_ms):.1%} "
+          f"({card})")
+    return launches, leg["launches"]
 
 
 def main() -> int:
@@ -3655,27 +3861,39 @@ def main() -> int:
     # BlockLLM training of granite-moe-3b-a800m, crash -> resume ->
     # export -> serve, serving dense and paged
     _, moe_legs = moe_family(torch, np, ops, da, results, card)
-    print(f"phase 24: {time.monotonic() - t3:.1f} s")
+    t4 = time.monotonic()
+    print(f"phase 24: {t4 - t3:.1f} s")
     results["decode_attention"]["g3_launches"] = \
         moe_legs["dense"]["launches"]["decode_attention"]
     results["paged_decode_attention"]["g3_launches"] = \
         moe_legs["paged"]["launches"]["paged_decode_attention"]
 
+    # phase 25: the xLSTM family: card vs CPU, BlockLLM training of
+    # xlstm-1.3b, crash -> resume -> export -> serve, serving
+    x_train, x_serve = xlstm_family(torch, np, ops, card)
+    print(f"phase 25: {time.monotonic() - t4:.1f} s")
+
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
-    # paged serving main path
-    launches = {**{k: launches[k] for k in SERVE_KERNELS},
+    # paged serving main path; the swap and the f32 masked Adam add the
+    # xLSTM serving and training runs (phase 25)
+    launches = {"decode_attention": launches["decode_attention"],
+                "scatter_swap": (launches["scatter_swap"]
+                                 + x_serve["scatter_swap"]),
                 "paged_decode_attention": p_launches["paged_decode_attention"],
                 "masked_adam_q8": t_launches["masked_adam_q8"],
-                "masked_adam": f32_launches["masked_adam"],
+                "masked_adam": (f32_launches["masked_adam"]
+                                + x_train["masked_adam"]),
                 "rglru_scan": rg_launches["rglru_scan"],
                 "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
     path_of = {"decode_attention": "serving main path",
-               "scatter_swap": "serving main path",
+               "scatter_swap": f"serving main path and the {XLSTM_ARCH} "
+                               f"serving run",
                "paged_decode_attention": "paged serving main path",
                "masked_adam_q8": "training main path (blockllm+q8)",
-               "masked_adam": "blockllm f32 run (fused_update='kernel')",
+               "masked_adam": f"blockllm f32 run (fused_update='kernel') "
+                              f"and the {XLSTM_ARCH} training main path",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
                              f"and remat recompute)",
                "rglru_scan_bwd": f"{RG_ARCH} training main path "

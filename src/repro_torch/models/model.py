@@ -38,8 +38,14 @@ indices of a prefill chunk are computed on the host once per chunk and
 shared by every layer; the decode step copies the page table to the
 device once.
 
-Other families (xLSTM, VLM, audio) are not ported yet (ROADMAP queue
-A, "Other families") and raise ``NotImplementedError``.
+xLSTM (family ``ssm``, ``models/xlstm.py``): an mLSTM or sLSTM block
+is its own residual branch (``x + block(x)``, no outer norm or MLP); its
+decode state (``{"C", "n", "m"}`` / ``{"c", "n", "m", "h"}``, f32 under
+any cache dtype) is written like the RG-LRU's, only where ``active[b]``,
+and the server primes it token by token.
+
+The VLM and audio families are not ported yet (ROADMAP queue A, "Other
+families") and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,15 +58,18 @@ import torch.nn.functional as F
 
 from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
-                                      BLOCK_RECURRENT, ModelConfig)
+                                      BLOCK_MLSTM, BLOCK_RECURRENT,
+                                      BLOCK_SLSTM, ModelConfig)
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
-from repro_torch.models import layers, moe, rglru
+from repro_torch.models import layers, moe, rglru, xlstm
 
 Pytree = Any
 
 ATTN_BLOCKS = (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN)
-PORTED_BLOCKS = ATTN_BLOCKS + (BLOCK_RECURRENT,)
+XLSTM_BLOCKS = (BLOCK_MLSTM, BLOCK_SLSTM)
+# blocks with a recurrent decode state: no chunked prefill, no rollback
+RECURRENT_BLOCKS = (BLOCK_RECURRENT,) + XLSTM_BLOCKS
 ATTN_IMPLS = ("full", "kernel")
 
 
@@ -75,18 +84,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures the port does not run yet: dense, hybrid
-    (RG-LRU) and MoE families with attention and recurrent blocks are
-    ported."""
+    """Raise for architectures the port does not run yet: the dense,
+    hybrid (RG-LRU), MoE and xLSTM (``ssm``) families, with every block
+    type, are ported; VLM and audio are not."""
     todo = "ROADMAP queue A, \"Other families\""
     why = None
-    if cfg.family not in ("dense", "hybrid", "moe") or (
+    if cfg.family not in ("dense", "hybrid", "moe", "ssm") or (
             cfg.num_experts and cfg.family != "moe"):
         why = f"family {cfg.family!r} ({todo})"
     elif cfg.is_encoder_decoder or cfg.vision_embed_dim:
         why = f"encoder-decoder / vision frontends ({todo})"
-    elif any(t not in PORTED_BLOCKS for t in cfg.layer_types()):
-        why = f"mLSTM / sLSTM blocks ({todo})"
     elif not cfg.rope_theta:
         why = f"absolute positions ({todo})"
     if why:
@@ -109,7 +116,9 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     embeddings and head, normal / sqrt(fan_in) projections with the
     depth-scaled output projections, zero norm scales; recurrent blocks
     as ``rglru.rglru_init``, an MoE block's ``moe`` leaf (in place of
-    ``mlp``) as ``moe.moe_init``."""
+    ``mlp``) as ``moe.moe_init``; an mLSTM / sLSTM block's row is
+    ``xlstm.mlstm_init`` / ``slstm_init`` itself (no ``ln1`` / ``ln2``),
+    as JAX's ``_block_init``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(dev).manual_seed(0)
@@ -128,6 +137,10 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
         return p
 
     def block(G, btype):
+        if btype in XLSTM_BLOCKS:
+            init = (xlstm.mlstm_init if btype == BLOCK_MLSTM
+                    else xlstm.slstm_init)
+            return init(cfg, generator=gen, device=dev, groups=G)
         p = {"ln1": {"scale": torch.zeros(G, d, device=dev)},
              "ln2": {"scale": torch.zeros(G, d, device=dev)}}
         if btype == BLOCK_RECURRENT:
@@ -172,7 +185,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """Slot-batched decode cache mirroring the stage layout: per stage
     and pattern position ``{"k", "v"}`` of ``[G, batch, C, KV, hd]``, or
     for a recurrent block ``{"h": [G, batch, W] f32, "conv": [G, batch,
-    cw - 1, W]}``."""
+    cw - 1, W]}``, or an xLSTM block's state (``xlstm.*_init_cache``:
+    f32 whatever ``dtype``, as in JAX)."""
     check_supported(cfg)
     dev = resolve_device(device)
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -183,6 +197,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             if btype == BLOCK_RECURRENT:
                 st[f"pos{j}"] = rglru.init_cache(cfg, batch, groups=groups,
                                                  dtype=dtype, device=dev)
+                continue
+            if btype in XLSTM_BLOCKS:
+                init = (xlstm.mlstm_init_cache if btype == BLOCK_MLSTM
+                        else xlstm.slstm_init_cache)
+                st[f"pos{j}"] = init(cfg, batch, groups=groups, device=dev)
                 continue
             C = _attn_cache_len(cfg, btype, seq_len)
             st[f"pos{j}"] = {
@@ -223,18 +242,26 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
     return {"stages": stages}
 
 
+# each recurrent state's leaves -> the value a fresh cache holds there
+_FRESH_STATES = {frozenset(f): f for f in (
+    {"h": 0.0, "conv": 0.0}, xlstm.MLSTM_FRESH, xlstm.SLSTM_FRESH)}
+
+
 def reset_recurrent_state(cache, slots):
-    """Zero the recurrent state (``h`` and ``conv``) of ``slots`` in
-    every recurrent block, in place on the device: a slot's next request
-    then starts from the state a fresh cache gives it.  Attention rows
-    need no reset (they are masked by position)."""
-    states = [a for st in cache["stages"] for blk in st.values()
-              if "h" in blk for a in blk.values()]
+    """Give ``slots`` the state a fresh cache has in every recurrent
+    block (RG-LRU ``h`` and ``conv`` 0; mLSTM ``m = -inf``; sLSTM ``n =
+    1e-6``, ``m = -1e30``; the rest 0), in place on the device: a slot's
+    next request then starts as on a fresh server.  Attention rows need
+    no reset (they are masked by position)."""
+    states = [(a, _FRESH_STATES[frozenset(blk)][name])
+              for st in cache["stages"] for blk in st.values()
+              if frozenset(blk) in _FRESH_STATES
+              for name, a in blk.items()]
     if states:
         idx = torch.as_tensor(slots, dtype=torch.long,
-                              device=states[0].device)
-        for a in states:
-            a.index_fill_(1, idx, 0)
+                              device=states[0][0].device)
+        for a, value in states:
+            a.index_fill_(1, idx, value)
     return cache
 
 
@@ -476,6 +503,22 @@ def _recurrent_block_apply(cfg, params, x, *, mode, cache, active):
     return x + layers.mlp_apply(params["mlp"], h, cfg.mlp_type)
 
 
+def _xlstm_block_apply(cfg, btype, params, x, *, mode, cache, active):
+    """An mLSTM or sLSTM block and its residual (JAX adds no outer norm);
+    decode writes the new state for active slots only."""
+    if mode not in ("train", "decode"):
+        raise ValueError(f"{mode} does not support {btype} blocks")
+    if btype == BLOCK_MLSTM:
+        y, new_cache = xlstm.mlstm_block_apply(params, x, mode=mode,
+                                               cache=cache)
+    else:
+        y, new_cache = xlstm.slstm_block_apply(params, x, cfg, mode=mode,
+                                               cache=cache)
+    if new_cache is not None:
+        _write_state(cache, new_cache, active)
+    return x + y
+
+
 def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
                  pos=None, attn_impl="full", active=None, page_table=None):
     """One block: ``(x, aux)``, ``aux`` the MoE router's aux loss (None
@@ -486,6 +529,9 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     if btype == BLOCK_RECURRENT:
         return _recurrent_block_apply(cfg, params, x, mode=mode,
                                       cache=cache, active=active), None
+    if btype in XLSTM_BLOCKS:
+        return _xlstm_block_apply(cfg, btype, params, x, mode=mode,
+                                  cache=cache, active=active), None
     window = cfg.window_size if btype == BLOCK_LOCAL_ATTN else 0
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     B, S, D = h.shape
@@ -780,7 +826,7 @@ def verify_into_slots(params, cfg: ModelConfig, cache, tokens, starts,
     PyTorch a [B, K, D] pass rounds differently from [B, 1, D] steps,
     so the one-pass verify is not ported (ROADMAP C) and a round costs
     K decode passes."""
-    if any(t == BLOCK_RECURRENT for t in cfg.layer_types()):
+    if any(t in RECURRENT_BLOCKS for t in cfg.layer_types()):
         raise ValueError("verify does not support recurrent blocks: their "
                          "state cannot roll back (see supports_spec_decode)")
     dev = tokens.device

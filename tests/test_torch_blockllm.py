@@ -82,8 +82,9 @@ def _flat(tree, port):
                                       np.float32).ravel() for l in leaves])
 
 
-def run_trajectory(mode, arch="internlm2-1.8b", **kw):
-    """Step the JAX and port trainers side by side; assert per step."""
+def run_trajectory(mode, arch="internlm2-1.8b", steps=STEPS, **kw):
+    """Step the JAX and port trainers side by side for ``steps`` steps;
+    assert per step."""
     jcfg, tcfg, jparams, tparams = _setup(arch, **kw)
     q8 = mode == "q8"
     jfused = {"off": "off", "plain": "interpret", "q8": "interpret"}[mode]
@@ -102,7 +103,7 @@ def run_trajectory(mode, arch="internlm2-1.8b", **kw):
     pipe = TokenPipeline(DataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
                                     global_batch=4, seed=0))
     reselections = 0
-    for step in range(STEPS):
+    for step in range(steps):
         batch = pipe.batch(step)
         lj = jh.train_step(batch)["loss"]
         lt = th.train_step({"tokens": np.asarray(batch["tokens"])})["loss"]
@@ -115,12 +116,12 @@ def run_trajectory(mode, arch="internlm2-1.8b", **kw):
                     == _flat(jh.state.arrays["masks"], False))
             assert same.mean() >= 0.999, (step, same.mean())
         reselections = jh.state.meta["reselections"]
-    assert reselections == 1 + STEPS // 4
+    assert reselections == 1 + steps // 4
     a = _flat(jh.state.arrays["sel"], False)
     b = _flat(th.state.arrays["sel"], True)
     close = np.abs(b - a) <= 1e-5 + 1e-3 * np.abs(a)
     assert close.mean() >= (0.985 if q8 else 0.995), close.mean()
-    assert np.abs(b - a).max() <= STEPS * LR
+    assert np.abs(b - a).max() <= steps * LR
     return jh, th
 
 

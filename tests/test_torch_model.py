@@ -212,10 +212,33 @@ def test_inactive_slot_cache_rows_stay_bit_exact(tiny_cfg):
 
 
 def test_unported_families_raise():
-    for arch in ("pixtral-12b", "xlstm-1.3b", "whisper-large-v3"):
+    for arch in ("pixtral-12b", "whisper-large-v3"):
         cfg = tconfigs.reduce_config(tconfigs.get_config(arch), 8)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmodel.init_params(cfg, device="cpu")
+
+
+def test_xlstm_init_and_forward():
+    """``xlstm-1.3b``, reduced, inits with mLSTM and sLSTM rows (no
+    ``ln1`` / ``ln2``) and runs ``forward``, ``loss_fn`` and a decode step
+    on the CPU: finite logits of the expected shape."""
+    cfg = tconfigs.reduce_config(tconfigs.get_config("xlstm-1.3b"), 8)
+    tmodel.check_supported(cfg)
+    params = tmodel.init_params(cfg, device="cpu")
+    st = params["stages"][0]
+    assert set(st["pos0"]) == {"norm", "w_up", "wq", "wk", "wv", "w_if",
+                               "b_i", "b_f", "gn", "w_down"}
+    assert "r_f" in st["pos7"] and "ln1" not in st["pos7"]
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    logits = tmodel.forward(params, cfg, toks)
+    loss, _ = tmodel.loss_fn(params, cfg, {"tokens": toks})
+    cache = tmodel.init_cache(cfg, 2, 16, device="cpu")
+    step, _ = tmodel.decode_step(params, cfg, cache, toks[:, :1],
+                                 np.zeros(2, np.int32))
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(loss)
+    assert torch.isfinite(step).all()
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])

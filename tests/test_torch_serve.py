@@ -195,7 +195,8 @@ def test_port_imports_neither_jax_nor_repro():
     interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
     training slice's, the paged serving slice's, the RG-LRU slice's, the
     flash-attention slice's, the AdapterCache's, the baselines', the
-    serving fleet's and the MoE family's modules are among them."""
+    serving fleet's, the MoE family's and the xLSTM family's modules are
+    among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -219,7 +220,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    'adapters.device_cache', 'baselines.galore', 'baselines.lora',\n"
         "    'baselines.badam', 'trainers.galore', 'trainers.lora',\n"
         "    'trainers.badam', 'runtime.elastic', 'runtime.fleet',\n"
-        "    'launch.fleet', 'models.moe')}\n"
+        "    'launch.fleet', 'models.moe', 'models.xlstm')}\n"
         "missing = sorted(need - set(mods))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 55 else 0)\n")
