@@ -217,6 +217,31 @@ What it does, failing (non-zero exit, no result line) on any error:
    bitwise the second run, swap launches counted, no decode-attention
    launch, the first request admitted into a reused slot equal to a
    fresh server's stream; and a profile of the xLSTM decode step;
+26. the encoder-decoder family (the port's slice 13),
+   ``whisper-large-v3`` (32 encoder + 32 decoder layers, d_model 1280,
+   MHA 20 x 64, 1500 frames of 1280 stub features, sinusoidal positions):
+   (a) the decode kernel at G = 1, head_dim 64 (B 8, KV 20, a 448-row
+   cache, bf16 and f32 q, an f32 cache) against its plain version with
+   phase 2's tolerances, and its time at contexts 100-440 beside the
+   bound, the plain version and SDPA; (b) at full width and 2 + 2 layers
+   in f32, ``forward`` (B 2, 64 tokens, 1500 frames), its ``cross_kv``
+   and 8 ``decode_step``s on the card within rtol 1e-4 of the largest
+   CPU value; (c) ``python -m repro_torch.launch.train --arch
+   whisper-large-v3 --reduce 0 --optimizer blockllm --batch 8 --seq 256
+   --steps 8`` with launch counts reset just before and read just after
+   (phase 16's loss gates, masked-Adam launches from the selections with
+   the ``encoder`` unit's nested leaves, peak memory, step p50) and every
+   decoder row's ``xattn.wk`` / ``xattn.wv`` bitwise unchanged (the
+   reference's zero gradient through the overlay); (d) checkpoint ->
+   crash -> resume -> export -> apply at 2 + 2 layers (``blockllm+q8``,
+   the ``encoder`` always active): resume bitwise, the tenant applied
+   with ``apply_delta`` decoding the merged weights' greedy streams, the
+   swap kernel launched exactly when the delta has row entries; (e) bf16
+   decode at full width and depth: ``prefill``'s ``cross_kv`` over [8,
+   1500, 1280] frames in ``init_cache(8, 448)``, 8-token prompts primed
+   per token, 16 new tokens: 32 decode-attention launches per step,
+   streams bitwise a second run, teacher-forced kernel against full
+   logits within 0.25, and a profile of the decode step;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -311,6 +336,20 @@ XLSTM_SERVE_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--demo-adapters",
                     "2", "--slots", "8", "--max-seq", "256", "--requests",
                     "16", "--new-tokens", "16"]
 XLSTM_LOGIT_RTOL = 1e-4   # card vs CPU, f32: relative to the largest logit
+# phase 26: the whisper encoder-decoder (slice 13)
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_TRAIN_ARGV = ["--arch", WHISPER_ARCH, "--reduce", "0", "--optimizer",
+                      "blockllm", "--batch", "8", "--seq", "256", "--steps",
+                      "8"]
+WHISPER_LOGIT_RTOL = 1e-4  # card vs CPU, f32: relative to the largest value
+WHISPER_CONTEXT = 448      # whisper's decoder context (its config's note)
+# whisper-large-v3's decode shape (MHA 20 heads, G = 1, hd 64)
+DECODE_G1_CASES = (
+    ("G1 hd64 bf16", 1, 64, WHISPER_CONTEXT, 0, False, 0.0, "bf16", "bf16"),
+    ("G1 hd64 f32 q", 1, 64, WHISPER_CONTEXT, 0, False, 0.0, "f32", "bf16"),
+    ("G1 hd64 f32 cache", 1, 64, WHISPER_CONTEXT, 0, False, 0.0, "bf16",
+     "f32"),
+)
 
 
 def smi() -> str:
@@ -480,11 +519,11 @@ def dtypes(torch):
     return {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def decode_cases(torch, da, cases, g):
+def decode_cases(torch, da, cases, g, KV=8):
     """The dense kernel against its plain version on each of ``cases``
-    (B 8, KV 8, q and caches drawn from ``g``).  Returns each case's
-    max |kernel - plain|."""
-    dev, B, KV, dt = "cuda", 8, 8, dtypes(torch)
+    (B 8, ``KV`` kv heads, q and caches drawn from ``g``).  Returns each
+    case's max |kernel - plain|."""
+    dev, B, dt = "cuda", 8, dtypes(torch)
     errs = {}
     for name, G, hd, C, window, ring, softcap, qs, cs in cases:
         qd, cd = dt[qs], dt[cs]
@@ -517,13 +556,13 @@ def decode_cases(torch, da, cases, g):
 
 
 def time_decode_attention(torch, da, results, g, *, G, hd, C, pos, worst,
-                          prefix=""):
-    """Device times of the dense kernel (B 8, KV 8, bf16) at contexts
-    ``pos`` of a ``C``-row cache beside its plain version, SDPA and the
-    bound; one launch per call; bitwise over launches and graph
+                          prefix="", KV=8):
+    """Device times of the dense kernel (B 8, ``KV`` kv heads, bf16) at
+    contexts ``pos`` of a ``C``-row cache beside its plain version, SDPA
+    and the bound; one launch per call; bitwise over launches and graph
     replays.  The numbers go into ``results["decode_attention"]`` under
     ``prefix``.  Returns q and the ring of cache copies."""
-    dev, B, KV = "cuda", 8, 8
+    dev, B = "cuda", 8
     copies = 8                                   # a ring of copies > L2
     q = torch.randn(B, 1, KV * G, hd, generator=g, device=dev).bfloat16()
     ks = [torch.randn(B, C, KV, hd, generator=g, device=dev).bfloat16()
@@ -1061,19 +1100,31 @@ def profile_decode(torch, np, paged=False, arch=ARCH):
     attention; ``paged``: through 16-row pages and the fused paged
     kernel) under ``torch.profiler``: wall per step, device busy per
     step, top kernels.  Returns the device ms per step by kind."""
-    from torch.autograd import DeviceType
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as model_lib
 
     cfg = get_config(arch)
-    B = 8
     params = model_lib.init_params(
         cfg, generator=torch.Generator("cuda").manual_seed(3), device="cuda")
     step, lengths = decode_stepper(torch, np, cfg, params, paged)
+    label = ("paged" if paged else "dense") + (
+        "" if arch == ARCH else f"_{arch}")
+    out = profile_steps(torch, step, label, f"{arch}, bf16, B8, contexts "
+                        f"{int(lengths.min())}-{int(lengths.max())}, kernel "
+                        f"attention")
+    del params, step
+    return out
+
+
+def profile_steps(torch, step, label, desc, n=4):
+    """``n`` steady ``step()``s (after 2 warm ones) under
+    ``torch.profiler``: wall per step, device busy per step, the idle
+    share, device ms per step by kind and the top kernels; the table goes
+    to ``OUT``.  Returns ``(groups, wall_ms, busy)``."""
+    from torch.autograd import DeviceType
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    n = 4
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1085,13 +1136,9 @@ def profile_decode(torch, np, paged=False, arch=ARCH):
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    label = ("paged" if paged else "dense") + (
-        "" if arch == ARCH else f"_{arch}")
-    print(f"decode step profile, {label} ({arch}, bf16, B{B}, contexts "
-          f"{int(lengths.min())}-{int(lengths.max())}, kernel attention, "
-          f"{n} steps): wall {wall_ms:.2f} ms/step, device busy "
-          f"{busy:.2f} ms/step, idle share "
-          f"{max(0.0, 1 - busy / wall_ms):.1%}")
+    print(f"decode step profile, {label} ({desc}, {n} steps): wall "
+          f"{wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step, idle "
+          f"share {max(0.0, 1 - busy / wall_ms):.1%}")
     groups = {"decode attention (both passes)": 0.0, "gemm/gemv": 0.0,
               "elementwise/copy": 0.0, "other": 0.0}
     for e in rows:
@@ -1115,7 +1162,6 @@ def profile_decode(torch, np, paged=False, arch=ARCH):
     (OUT / f"decode_profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=40))
-    del params, step
     return groups, wall_ms, busy
 
 # --------------------------------------------------------------------- #
@@ -3644,6 +3690,380 @@ def xlstm_family(torch, np, ops, card):
     return launches, leg["launches"]
 
 
+# --------------------------------------------------------------------- #
+# phase 26: the whisper encoder-decoder (slice 13)
+# --------------------------------------------------------------------- #
+
+
+def whisper_greedy(torch, cfg, params, prompt, frames, n_new, impl,
+                   fed=None):
+    """Model-level greedy decode: ``prefill`` over the frames (and the
+    prompt) for its ``cross_kv``, put into ``init_cache(B, 448)``; the
+    prompt fed token by token, then each argmax (or, teacher-forced, the
+    tokens ``fed``) fed back.  Returns ``(streams [B, n_new], per-step
+    logits, decode passes)``."""
+    from repro_torch.models import model as model_lib
+    B, P = prompt.shape
+    with torch.no_grad():
+        _, pre = model_lib.prefill(params, cfg, {"tokens": prompt,
+                                                 "frames": frames})
+        cache = model_lib.init_cache(cfg, B, WHISPER_CONTEXT, device="cuda")
+        for st, src in zip(cache["cross_kv"], pre["cross_kv"]):
+            for pos, kv in st.items():
+                for n, a in kv.items():
+                    a.copy_(src[pos][n])
+        del pre
+        out, logits = [], []
+        for t in range(P + n_new - 1):
+            cur = (prompt[:, t:t + 1] if t < P else
+                   (fed[:, t - P:t - P + 1] if fed is not None
+                    else out[-1][:, None]))
+            lg, _ = model_lib.decode_step(
+                params, cfg, cache, cur,
+                torch.full((B,), t, dtype=torch.int32, device="cuda"),
+                attn_impl=impl)
+            logits.append(lg.float())
+            if t >= P - 1:
+                out.append(lg.argmax(-1))
+    return torch.stack(out, 1), logits, P + n_new - 1
+
+
+def whisper_card_vs_cpu(torch, np, ops):
+    """(b) Full width, 2 encoder + 2 decoder layers, f32: ``forward``
+    (``mode="prefill"``) at B 2 over 64 tokens and 1500 frames, its
+    ``cross_kv``, and 8 ``decode_step``s from ``init_cache`` with that
+    ``cross_kv`` (kernel attention on the card, plain on the CPU), the
+    card against the port's CPU run on the same weights: each within
+    rtol 1e-4 of the largest CPU value."""
+    from repro_torch.checkpoint.checkpointer import (_flatten_with_names,
+                                                     tree_map)
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    t0 = time.monotonic()
+    cfg = get_config(WHISPER_ARCH).replace(num_layers=2,
+                                           num_encoder_layers=2,
+                                           dtype="float32")
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(26), device="cuda")
+    host = tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(26)
+    toks = rng.integers(0, cfg.vocab_size, (2, 64))
+    frames = rng.standard_normal((2, cfg.encoder_seq_len,
+                                  cfg.encoder_feature_dim), np.float32)
+    fed = rng.integers(0, cfg.vocab_size, (8, 2, 1))
+
+    def run(dev, p, impl):
+        with torch.no_grad():
+            logits, pre = model_lib.forward(
+                p, cfg, torch.as_tensor(toks, device=dev),
+                frames=torch.as_tensor(frames, device=dev), mode="prefill")
+            outs = [logits]
+            cache = model_lib.init_cache(cfg, 2, 16, dtype=torch.float32,
+                                         device=dev)
+            cache["cross_kv"] = pre["cross_kv"]
+            for t, tok in enumerate(fed):
+                lg, _ = model_lib.decode_step(
+                    p, cfg, cache, torch.as_tensor(tok, device=dev),
+                    torch.full((2,), t, dtype=torch.int32, device=dev),
+                    attn_impl=impl)
+                outs.append(lg)
+        kv = _flatten_with_names(pre["cross_kv"])[1]
+        return [o.float().cpu() for o in outs], [a.cpu() for a in kv]
+
+    ops.reset_launches()
+    card, card_kv = run("cuda", params, "kernel")
+    launched = ops.LAUNCHES["decode_attention"]
+    t1 = time.monotonic()
+    cpu, cpu_kv = run("cpu", host, "full")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    r_out = [rel(a, b) for a, b in zip(card, cpu)]
+    r_kv = max(rel(a, b) for a, b in zip(card_kv, cpu_kv))
+    ok = (max(r_out + [r_kv]) <= WHISPER_LOGIT_RTOL and launched == 2 * 8
+          and all(bool(torch.isfinite(a).all()) for a in card))
+    print(f"whisper card vs CPU ({WHISPER_ARCH}, full width, 2 encoder + 2 "
+          f"decoder layers, f32, 1500 frames): max|card-cpu| / max|cpu| "
+          f"forward (B 2, S 64) {r_out[0]:.2e}, cross_kv {r_kv:.2e}, decode "
+          f"steps {[float(f'{r:.2e}') for r in r_out[1:]]} (rtol "
+          f"{WHISPER_LOGIT_RTOL}); decode_attention launches {launched} "
+          f"(2 layers x 8 steps); card {t1 - t0:.1f} s with init, CPU "
+          f"{time.monotonic() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("whisper: the card disagrees with the CPU")
+    del params, host
+    torch.cuda.empty_cache()
+
+
+def whisper_train(torch, np, ops):
+    """(c) ``python -m repro_torch.launch.train --arch whisper-large-v3
+    --reduce 0 --optimizer blockllm --batch 8 --seq 256 --steps 8``
+    through ``family_train_main_path`` (its gates; the masked-Adam count
+    takes the ``encoder`` unit's nested leaves), then the reference's
+    behaviour: every decoder row's ``xattn.wk`` / ``xattn.wv``, those of
+    the selected rows included, bitwise the initial weights after the
+    run (their gradient through the overlay is zero)."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.trainers import api
+    cross = ("xattn/wk", "xattn/wv")
+    first, selected, handles = {}, set(), []
+    step = api.TrainerHandle.train_step
+
+    def spy(self, batch):
+        if not handles:
+            handles.append(self)
+            names, leaves, _ = _flatten_with_names(self.state.arrays["params"])
+            first.update({n: a.cpu() for n, a in zip(names, leaves)
+                          if n.endswith(cross + ("xattn/wq",))})
+        selected.update((sid, int(g)) for sid, rows in
+                        self.state.meta["stack_idx"].items() for g in rows)
+        return step(self, batch)
+
+    api.TrainerHandle.train_step = spy
+    try:
+        launches, peak, p50 = family_train_main_path(
+            torch, np, ops, argv=WHISPER_TRAIN_ARGV, label="whisper")
+    finally:
+        api.TrainerHandle.train_step = step
+    names, leaves, _ = _flatten_with_names(handles[0].merged_params())
+    after = {n: a.cpu() for n, a in zip(names, leaves) if n in first}
+    handles.clear()
+    rows = sorted(selected)
+    same = all(torch.equal(after[n], first[n]) for n in first
+               if n.endswith(cross))
+
+    def wq(sid):                        # "s0/pos0" -> its stacked wq leaf
+        si, pos = sid.split("/")
+        return f"stages/{si[1:]}/{pos}/xattn/wq"
+    moved = sum(not torch.equal(after[wq(sid)][g], first[wq(sid)][g])
+                for sid, g in rows)
+    print(f"whisper train: {len(rows)} decoder rows selected {rows}; every "
+          f"row's xattn.wk / xattn.wv bitwise the initial weights after the "
+          f"run: {same}; the selected rows' xattn.wq moved in {moved} of "
+          f"{len(rows)}")
+    if not same or not rows:
+        raise AssertionError("whisper train: a selected row's xattn.wk / "
+                             "xattn.wv changed, as the reference's never do")
+    del first, after
+    torch.cuda.empty_cache()
+    return launches, peak, p50
+
+
+def whisper_crash_resume_apply(torch, np, ops):
+    """(d) Checkpoint -> crash -> resume -> export -> apply at full width,
+    2 encoder + 2 decoder layers: ``blockllm+q8`` (the fused Q8 kernel),
+    patience 2 so it reselects, the leaf units (``encoder`` among them)
+    always active, the frames drawn per step as the launcher draws them.
+    The resumed run must equal the uninterrupted one bitwise; the
+    exported tenant, applied to the base with ``apply_delta``, must give
+    the greedy streams of the merged weights (kernel attention); the
+    swap kernel must launch exactly when the delta has row entries."""
+    import shutil
+    from repro_torch import trainers
+    from repro_torch.adapters import AdapterRegistry, apply_delta, copy_tree
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.blockllm import BlockLLMConfig
+    from repro_torch.core.selection import SelectorConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import frames_for
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import Adam
+    from repro_torch.runtime import train_loop
+    cfg = get_config(WHISPER_ARCH).replace(num_layers=2, num_encoder_layers=2)
+    params0 = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(7), device="cuda")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                    global_batch=8, seed=7))
+
+    def batch_fn(step):
+        return {**pipe.batch(step),
+                "frames": frames_for(cfg, 8, 7, step, "cuda")}
+
+    bcfg = BlockLLMConfig(selector=SelectorConfig(
+        patience=2, always_active_leaves=("final_norm", "embed", "head",
+                                          "encoder")),
+        fused_update="kernel")
+
+    def handle():
+        core = trainers.make("blockllm+q8", cfg, adam=Adam(lr=1e-3),
+                             bcfg=bcfg, device="cuda")
+        return trainers.TrainerHandle(core, core.init(None,
+                                                      copy_tree(params0)))
+
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    t0 = time.monotonic()
+    whole = handle()
+    train_loop.run(whole, batch_fn, train_loop.TrainLoopConfig(
+        total_steps=6, log_every=0))
+    lcfg = train_loop.TrainLoopConfig(
+        total_steps=6, ckpt_every=3, log_every=0,
+        ckpt_dir=str(SCRATCH / "ckpt"), adapter_dir=str(SCRATCH / "adapters"),
+        adapter_id="tuned")
+    crashed = handle()
+    try:
+        train_loop.run(crashed, batch_fn, lcfg, crash_at=5)
+        raise AssertionError("the simulated crash did not happen")
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    del crashed
+    resumed = handle()
+    train_loop.run(resumed, batch_fn, lcfg)
+    torch.cuda.synchronize()
+    na, la, _ = _flatten_with_names(whole.state.arrays)
+    nb, lb, _ = _flatten_with_names(resumed.state.arrays)
+    same = (na == nb and resumed.state.meta == whole.state.meta and all(
+        a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                           b.reshape(-1).view(torch.uint8))
+        for a, b in zip(la, lb)))
+    enc = sum(n.startswith("sel/leaves/encoder/") for n in na)
+    print(f"crash-resume ({WHISPER_ARCH} width, 2 encoder + 2 decoder "
+          f"layers, blockllm+q8, the encoder's {enc} leaves always active, "
+          f"ckpt at 3, crash at 5, resumed to 6; "
+          f"{whole.state.meta['reselections']} selections): resumed == "
+          f"uninterrupted bitwise over {len(la)} leaves and the host meta: "
+          f"{same} ({time.monotonic() - t0:.1f} s with checkpoint I/O)")
+    if not same:
+        raise AssertionError("whisper: the resumed run differs from the "
+                             "uninterrupted run")
+    del whole
+    delta = AdapterRegistry(SCRATCH / "adapters").get("tuned")
+    row_entries = sum(e.idx is not None for e in delta.entries.values())
+    ops.reset_launches()
+    applied, _ = apply_delta(copy_tree(params0), delta)
+    torch.cuda.synchronize()
+    swaps = ops.LAUNCHES["scatter_swap"]
+    rng = np.random.default_rng(7)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 8)),
+                             device="cuda")
+    frames = frames_for(cfg, 4, 70, 0, "cuda")
+    got = whisper_greedy(torch, cfg, applied, prompt, frames, 16, "kernel")[0]
+    want = whisper_greedy(torch, cfg, resumed.merged_params(), prompt,
+                          frames, 16, "kernel")[0]
+    ok = torch.equal(got, want)
+    print(f"apply the exported tenant 'tuned' ({delta.num_rows()} rows, "
+          f"{delta.nbytes / 2 ** 20:.1f} MiB, step {delta.meta['step']}; "
+          f"{row_entries} row entries of {len(delta.entries)}, encoder "
+          f"leaves {sum(n.startswith('encoder/') for n in delta.entries)}): "
+          f"scatter_swap launches {swaps}; greedy streams (4 x 16, kernel "
+          f"attention) equal to the merged weights': {ok}")
+    if not ok or bool(swaps) != bool(row_entries):
+        raise AssertionError("whisper: the applied tenant disagrees, or the "
+                             "swap kernel did not launch with row entries")
+    del resumed, params0, applied, delta
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return swaps
+
+
+def whisper_decode(torch, np, ops):
+    """(e) Full width and depth, bf16 weights: ``prefill`` over [8, 1500,
+    1280] frames and an 8-token prompt for the ``cross_kv`` of
+    ``init_cache(8, 448)``, the prompt primed token by token, 16 greedy
+    tokens, kernel attention.  Gates: 32 decode-attention launches per
+    decode step; streams bitwise a second run; teacher-forced logits of
+    ``kernel`` against ``full`` within ``LOGIT_BF16_TOL``.  Then a
+    profile of the decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import frames_for
+    from repro_torch.models import model as model_lib
+    cfg = get_config(WHISPER_ARCH)
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(26), device="cuda", dtype=torch.bfloat16)
+    B = 8
+    prompt = torch.as_tensor(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (B, 8)), device="cuda")
+    frames = frames_for(cfg, B, 26, 0, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    out, logits, passes = whisper_greedy(torch, cfg, params, prompt, frames,
+                                         16, "kernel")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    again = whisper_greedy(torch, cfg, params, prompt, frames, 16,
+                           "kernel")[0]
+    full = whisper_greedy(torch, cfg, params, prompt, frames, 16, "full",
+                          fed=out)[1]
+    worst = max(float((a - b).abs().max()) for a, b in zip(logits, full))
+    n_attn = cfg.num_layers
+    same = torch.equal(out, again)
+    print(f"whisper decode ({WHISPER_ARCH}, full width and depth, bf16, B "
+          f"{B}, 8-token prompts primed per token, 16 new tokens, "
+          f"init_cache({B}, {WHISPER_CONTEXT}), cross_kv from prefill over "
+          f"[{B}, {cfg.encoder_seq_len}, {cfg.encoder_feature_dim}] "
+          f"frames): {passes} decode passes, launches {launches} "
+          f"({n_attn} x {passes} = {n_attn * passes} expected); {wall:.2f} s "
+          f"wall with prefill; peak device memory {peak / 2 ** 30:.2f} GiB; "
+          f"streams bitwise a second run: {same}; teacher-forced "
+          f"max|kernel - full| {worst:.4f} (tol {LOGIT_BF16_TOL}); stream 0 "
+          f"{out[0].tolist()}")
+    fails = []
+    if launches["decode_attention"] != n_attn * passes:
+        fails.append("not 32 decode-attention launches per decode step")
+    if not same:
+        fails.append("differs from a second run of itself")
+    if not worst <= LOGIT_BF16_TOL:
+        fails.append("kernel and full logits disagree")
+    if fails:
+        raise AssertionError(f"whisper decode: {fails}")
+    with torch.no_grad():
+        _, pre = model_lib.prefill(params, cfg, {"tokens": prompt,
+                                                 "frames": frames})
+        cache = model_lib.init_cache(cfg, B, WHISPER_CONTEXT, device="cuda")
+        cache["cross_kv"] = pre["cross_kv"]
+        del pre
+        pos = torch.full((B,), 100, dtype=torch.int32, device="cuda")
+        tok = prompt[:, :1]
+
+        def step():
+            nonlocal pos, tok
+            lg, _ = model_lib.decode_step(params, cfg, cache, tok, pos,
+                                          attn_impl="kernel")
+            tok = lg.argmax(-1, keepdim=True).cpu().to("cuda")
+            pos = pos + 1
+        _, wall_ms, busy = profile_steps(
+            torch, step, f"dense_{WHISPER_ARCH}", f"{WHISPER_ARCH}, bf16, "
+            f"B{B}, contexts 102-106 of {WHISPER_CONTEXT}, cross-attention "
+            f"over {cfg.encoder_seq_len} frames, kernel attention")
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches, wall_ms, busy, peak
+
+
+def whisper_family(torch, np, ops, da, results, card):
+    """Phase 26: (a) decode attention at G = 1, head_dim 64, (b) card vs
+    CPU at 2 + 2 layers, (c) BlockLLM training at full width and depth,
+    (d) crash -> resume -> export -> apply at 2 + 2 layers, (e) decode at
+    full width and depth and its profile."""
+    t0 = time.monotonic()
+    g = torch.Generator("cuda").manual_seed(26)
+    errs = decode_cases(torch, da, DECODE_G1_CASES, g, KV=20)
+    ctx = [int(c) for c in np.random.default_rng(26).integers(100, 441, 8)]
+    time_decode_attention(torch, da, results, g, G=1, hd=64,
+                          C=WHISPER_CONTEXT, pos=ctx,
+                          worst=errs["G1 hd64 bf16"], prefix="g1_", KV=20)
+    torch.cuda.empty_cache()
+    whisper_card_vs_cpu(torch, np, ops)
+    t1 = time.monotonic()
+    launches, peak, p50 = whisper_train(torch, np, ops)
+    t2 = time.monotonic()
+    swaps = whisper_crash_resume_apply(torch, np, ops)
+    t3 = time.monotonic()
+    dec, wall_ms, busy, dec_peak = whisper_decode(torch, np, ops)
+    print(f"phase 26 ({WHISPER_ARCH}): kernel and card vs CPU "
+          f"{t1 - t0:.1f} s, training {t2 - t1:.1f} s, crash-resume-export-"
+          f"apply {t3 - t2:.1f} s, decode and profile "
+          f"{time.monotonic() - t3:.1f} s; training peak "
+          f"{peak / 2 ** 30:.2f} GiB, step p50 {p50:.1f} ms; decode peak "
+          f"{dec_peak / 2 ** 30:.2f} GiB, step wall {wall_ms:.2f} ms, busy "
+          f"{busy:.2f} ms, idle {max(0.0, 1 - busy / wall_ms):.1%} ({card})")
+    return launches, swaps, dec
+
+
 def main() -> int:
     try:
         import torch
@@ -3682,6 +4102,7 @@ def main() -> int:
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
         wants = {"decode_attention": ["Li128ELi2E",       # hd 128, G 2
                                       "Li64ELi3E",        # hd 64, G 3
+                                      "Li64ELi1E",        # hd 64, G 1
                                       "Li256ELi10E",      # f32 cache, G 10
                                       # bf16 cache, G 10: tensor cores
                                       "decode_attention_g10_mma_kernel"],
@@ -3871,29 +4292,42 @@ def main() -> int:
     # phase 25: the xLSTM family: card vs CPU, BlockLLM training of
     # xlstm-1.3b, crash -> resume -> export -> serve, serving
     x_train, x_serve = xlstm_family(torch, np, ops, card)
-    print(f"phase 25: {time.monotonic() - t4:.1f} s")
+    t5 = time.monotonic()
+    print(f"phase 25: {t5 - t4:.1f} s")
+
+    # phase 26: the whisper encoder-decoder: decode attention at G = 1,
+    # card vs CPU, BlockLLM training of whisper-large-v3, crash -> resume
+    # -> export -> apply, full-depth decode
+    w_train, w_swaps, w_decode = whisper_family(torch, np, ops, da, results,
+                                                card)
+    print(f"phase 26: {time.monotonic() - t5:.1f} s")
+    results["decode_attention"]["g1_launches"] = \
+        w_decode["decode_attention"]
 
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path; the swap and the f32 masked Adam add the
-    # xLSTM serving and training runs (phase 25)
+    # xLSTM serving and training runs (phase 25) and the whisper apply
+    # and training runs (phase 26)
     launches = {"decode_attention": launches["decode_attention"],
                 "scatter_swap": (launches["scatter_swap"]
-                                 + x_serve["scatter_swap"]),
+                                 + x_serve["scatter_swap"] + w_swaps),
                 "paged_decode_attention": p_launches["paged_decode_attention"],
                 "masked_adam_q8": t_launches["masked_adam_q8"],
                 "masked_adam": (f32_launches["masked_adam"]
-                                + x_train["masked_adam"]),
+                                + x_train["masked_adam"]
+                                + w_train["masked_adam"]),
                 "rglru_scan": rg_launches["rglru_scan"],
                 "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
     path_of = {"decode_attention": "serving main path",
-               "scatter_swap": f"serving main path and the {XLSTM_ARCH} "
-                               f"serving run",
+               "scatter_swap": f"serving main path, the {XLSTM_ARCH} "
+                               f"serving run and the {WHISPER_ARCH} apply",
                "paged_decode_attention": "paged serving main path",
                "masked_adam_q8": "training main path (blockllm+q8)",
                "masked_adam": f"blockllm f32 run (fused_update='kernel') "
-                              f"and the {XLSTM_ARCH} training main path",
+                              f"and the {XLSTM_ARCH} and {WHISPER_ARCH} "
+                              f"training main paths",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
                              f"and remat recompute)",
                "rglru_scan_bwd": f"{RG_ARCH} training main path "

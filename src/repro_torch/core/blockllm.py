@@ -114,7 +114,11 @@ def build_step_fn(cfg, index: UnitIndex, adam, bcfg: BlockLLMConfig,
             loss, metrics = loss_fn(merged, batch, overlay=overlay)
         _, sl, td_sel = _flatten_with_names(sel_g)
         _, pl, td_probe = _flatten_with_names(probe_g)
-        grads = torch.autograd.grad(loss, sl + pl)
+        # a row's leaf the loss does not reach gets JAX's zero gradient:
+        # an encoder-decoder row's xattn wk / wv, whose cross k/v come
+        # from the frozen params, not the overlay (as in JAX)
+        grads = torch.autograd.grad(loss, sl + pl, allow_unused=True,
+                                    materialize_grads=True)
         g_sel = td_sel.unflatten(grads[:len(sl)])
         g_probe = td_probe.unflatten(grads[len(sl):])
         del sel_g, probe_g, merged, grads

@@ -4,8 +4,11 @@ A *unit* is the paper's "layer", the block the selector turns on or off:
 
 - **stack rows**: ``params["stages"][si]["pos{j}"]`` holds a tree whose
   leaves are stacked ``[G, ...]``; row ``g`` is one transformer layer;
-- **whole leaves**: ``embed``, ``head``, ``final_norm`` (and, for the
-  families not ported yet, ``vision_proj``, ``encoder``).
+- **whole leaves**: ``embed``, ``head``, ``final_norm``, an
+  encoder-decoder model's ``encoder`` (a subtree: the frontend, the
+  encoder's stacked blocks and its norm, selected as one unit and
+  updated leaf by leaf) and, for the VLM family not ported yet,
+  ``vision_proj``.
 
 ``extract_active`` gathers the selected and probe rows (copies) and
 copies the selected leaf units; ``merge_active`` scatters them back into
@@ -143,14 +146,17 @@ def extract_active(params, index: UnitIndex, plan: Plan):
 def merge_active(params, index: UnitIndex, plan: Plan, active):
     """Scatter the active rows into a new tree (``params`` untouched).
 
-    Differentiable in ``active`` only: frozen leaves are detached, so no
-    gradient reaches them."""
+    Differentiable in ``active`` only: the frozen stacks are detached
+    once, before any scatter (as JAX's one ``stop_gradient``), so no
+    gradient reaches them and the probe rows' scatter keeps the selected
+    rows' gradient in the same stack."""
     out = {k: v for k, v in params.items() if k != "stages"}
-    stages = [dict(s) for s in params["stages"]]
+    stages = [{pos: tree_map(torch.Tensor.detach, sub)
+               for pos, sub in s.items()} for s in params["stages"]]
 
     def scatter(sub, rows, idx):
         ix = idx.to(torch.long)
-        return tree_map2(lambda f, a: f.detach().index_put(
+        return tree_map2(lambda f, a: f.index_put(
             (ix.to(f.device),), a.to(f.dtype)), sub, rows)
 
     for group, idx_of in ((active["sel"]["stacks"], plan.stack_idx),

@@ -15,7 +15,10 @@ baselines ``galore`` (``--rank``), ``lora`` (``--rank``), ``badam`` and
 kernels (f32 and Q8 moments) by default.  ``--reduce
 N`` scales the arch down (0 = full width).  Hybrid archs
 (``--arch recurrentgemma-2b``) run their RG-LRU scans through the scan
-kernel, forward and backward.
+kernel, forward and backward.  An encoder-decoder arch (``--arch
+whisper-large-v3``) gets stub frame embeddings ``frames`` [batch,
+encoder_seq_len, encoder_feature_dim] ~ N(0, 1) beside each step's
+tokens (``frames_for``), as the JAX launcher's ``batch_fn`` draws them.
 """
 from __future__ import annotations
 
@@ -42,6 +45,16 @@ def make_trainer(cfg, args, params=None, device=None):
         device=device)
     gen = torch.Generator(core.device).manual_seed(args.seed)
     return trainers.TrainerHandle(core, core.init(gen, params))
+
+
+def frames_for(cfg, batch: int, seed: int, step: int, device):
+    """Step ``step``'s stub frame embeddings, drawn on ``device`` from a
+    generator seeded with ``(seed, step)``: a resumed run sees the frames
+    an uninterrupted one saw at the same step."""
+    import torch
+    gen = torch.Generator(device).manual_seed((seed << 32) + step)
+    return torch.randn(batch, cfg.encoder_seq_len, cfg.encoder_feature_dim,
+                       generator=gen, device=device)
 
 
 def main(argv=None):
@@ -103,13 +116,20 @@ def main(argv=None):
                                     global_batch=args.batch,
                                     seed=args.seed))
 
+    def batch_fn(step):
+        b = pipe.batch(step)
+        if cfg.is_encoder_decoder:
+            b["frames"] = frames_for(cfg, args.batch, args.seed, step,
+                                     device)
+        return b
+
     tracer, metrics = None, None
     if args.trace or args.metrics_every:
         from repro_torch.obs import MetricsRegistry, Tracer
         metrics = MetricsRegistry()
         if args.trace:
             tracer = Tracer()
-    out = run(trainer, pipe.batch,
+    out = run(trainer, batch_fn,
               TrainLoopConfig(total_steps=args.steps,
                               ckpt_every=args.ckpt_every,
                               ckpt_dir=args.ckpt_dir,

@@ -45,6 +45,28 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def sinusoid(pos, d):
+    """f32 ``[..., d]`` absolute-position rows at the f32 positions
+    ``pos [...]``: sin on the even columns, cos on the odd, each at
+    ``pos * exp(-2i ln(10000) / d)`` (JAX's ``sinusoidal_positions`` and
+    the inline rows of its ``decode_step``)."""
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=pos.device)
+                    * (-math.log(10000.0) / d))
+    ang = pos[..., None] * div
+    pe = torch.empty(pos.shape + (d,), dtype=torch.float32,
+                     device=pos.device)
+    pe[..., 0::2] = torch.sin(ang)
+    pe[..., 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoidal_positions(S, d, dtype=torch.float32, device=None):
+    """``[S, d]`` rows of positions ``0 .. S - 1``, in f32, then cast."""
+    return sinusoid(torch.arange(S, dtype=torch.float32, device=device),
+                    d).to(dtype)
+
+
 def _repeat_kv(k, n_rep):
     return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
 

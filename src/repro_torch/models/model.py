@@ -44,8 +44,22 @@ decode state (``{"C", "n", "m"}`` / ``{"c", "n", "m", "h"}``, f32 under
 any cache dtype) is written like the RG-LRU's, only where ``active[b]``,
 and the server primes it token by token.
 
-The VLM and audio families are not ported yet (ROADMAP queue A, "Other
-families") and raise ``NotImplementedError``.
+Encoder-decoder (whisper, family ``audio``): ``_encode`` maps the stub
+frame embeddings ``frames`` [B, Se, F] through ``encoder.frontend``,
+adds absolute sinusoidal positions and runs the encoder's own
+non-causal MHA blocks; ``_cross_kv`` projects its output once per
+forward into each decoder row's cross k/v, and every decoder block
+cross-attends (``lnx``, ``xattn``) after its self-attention.  Decoder
+tokens take absolute positions too (``rope_theta == 0``).  Decoding is
+model-level: ``init_cache`` holds a ``cross_kv`` per decoder row, filled
+from ``prefill``'s; slot prefill, paged KV and speculation are refused
+as JAX's predicates refuse them, and so is the ``DecodeServer``.  As in
+JAX, ``_cross_kv`` reads the frozen ``params["stages"]``, not BlockLLM's
+overlay, so a selected row's ``xattn.wk`` / ``xattn.wv`` get no gradient
+through the overlay (ROADMAP C, "Faults of the reference").
+
+The VLM family is not ported yet (ROADMAP queue A, "Other families")
+and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -85,17 +99,16 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for architectures the port does not run yet: the dense,
-    hybrid (RG-LRU), MoE and xLSTM (``ssm``) families, with every block
-    type, are ported; VLM and audio are not."""
+    hybrid (RG-LRU), MoE, xLSTM (``ssm``) and encoder-decoder (``audio``)
+    families, with every block type and absolute or rotary positions,
+    are ported; VLM is not."""
     todo = "ROADMAP queue A, \"Other families\""
     why = None
-    if cfg.family not in ("dense", "hybrid", "moe", "ssm") or (
+    if cfg.family not in ("dense", "hybrid", "moe", "ssm", "audio") or (
             cfg.num_experts and cfg.family != "moe"):
         why = f"family {cfg.family!r} ({todo})"
-    elif cfg.is_encoder_decoder or cfg.vision_embed_dim:
-        why = f"encoder-decoder / vision frontends ({todo})"
-    elif not cfg.rope_theta:
-        why = f"absolute positions ({todo})"
+    elif cfg.vision_embed_dim:
+        why = f"vision frontends ({todo})"
     if why:
         raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
 
@@ -109,6 +122,15 @@ def _cdtype(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's shape (JAX's ``enc_cfg``): global MHA blocks,
+    ``num_encoder_layers`` of them, no experts, absolute positions."""
+    return cfg.replace(num_layers=cfg.num_encoder_layers,
+                       pattern=(BLOCK_GLOBAL_ATTN,), num_experts=0,
+                       is_encoder_decoder=False, rope_theta=0.0,
+                       num_kv_heads=cfg.num_heads)
+
+
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
                 = None, device=None, dtype=torch.float32) -> Pytree:
     """Random weights with the JAX package's distributions (not its
@@ -118,57 +140,76 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     as ``rglru.rglru_init``, an MoE block's ``moe`` leaf (in place of
     ``mlp``) as ``moe.moe_init``; an mLSTM / sLSTM block's row is
     ``xlstm.mlstm_init`` / ``slstm_init`` itself (no ``ln1`` / ``ln2``),
-    as JAX's ``_block_init``."""
+    as JAX's ``_block_init``.  An encoder-decoder model's decoder rows
+    add ``lnx`` and an MHA ``xattn``, and its ``encoder`` holds the
+    ``frontend`` map, the encoder's own stages (their output scales from
+    ``num_encoder_layers``) and its ``final_norm``."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(dev).manual_seed(0)
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    H, KV, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
 
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device=dev) * std
 
-    def mlp(G):
-        down = 1.0 / math.sqrt(f) / math.sqrt(2 * L)
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    def mlp(c, G):
+        f = c.d_ff
+        down = 1.0 / math.sqrt(f) / math.sqrt(2 * c.num_layers)
         p = {"w_up": normal((G, d, f), 1 / math.sqrt(d)),
              "w_down": normal((G, f, d), down)}
-        if cfg.mlp_type in ("swiglu", "geglu"):
+        if c.mlp_type in ("swiglu", "geglu"):
             p["w_gate"] = normal((G, d, f), 1 / math.sqrt(d))
         return p
 
-    def block(G, btype):
+    def attn(c, G, KV):
+        out_scale = 1.0 / math.sqrt(H * hd) / math.sqrt(2 * c.num_layers)
+        return {"wq": normal((G, d, H * hd), 1 / math.sqrt(d)),
+                "wk": normal((G, d, KV * hd), 1 / math.sqrt(d)),
+                "wv": normal((G, d, KV * hd), 1 / math.sqrt(d)),
+                "wo": normal((G, H * hd, d), out_scale)}
+
+    def block(c, G, btype):
         if btype in XLSTM_BLOCKS:
             init = (xlstm.mlstm_init if btype == BLOCK_MLSTM
                     else xlstm.slstm_init)
-            return init(cfg, generator=gen, device=dev, groups=G)
-        p = {"ln1": {"scale": torch.zeros(G, d, device=dev)},
-             "ln2": {"scale": torch.zeros(G, d, device=dev)}}
+            return init(c, generator=gen, device=dev, groups=G)
+        p = {"ln1": {"scale": zeros(G, d)}, "ln2": {"scale": zeros(G, d)}}
         if btype == BLOCK_RECURRENT:
-            p["rec"] = rglru.rglru_init(cfg, generator=gen, device=dev,
+            p["rec"] = rglru.rglru_init(c, generator=gen, device=dev,
                                         groups=G)
-            p["mlp"] = mlp(G)
+            p["mlp"] = mlp(c, G)
             return p
-        out_scale = 1.0 / math.sqrt(H * hd) / math.sqrt(2 * L)
-        p["attn"] = {"wq": normal((G, d, H * hd), 1 / math.sqrt(d)),
-                     "wk": normal((G, d, KV * hd), 1 / math.sqrt(d)),
-                     "wv": normal((G, d, KV * hd), 1 / math.sqrt(d)),
-                     "wo": normal((G, H * hd, d), out_scale)}
-        if cfg.num_experts:
-            p["moe"] = moe.moe_init(cfg, generator=gen, device=dev,
-                                    groups=G)
-        elif f:
-            p["mlp"] = mlp(G)
+        p["attn"] = attn(c, G, c.num_kv_heads)
+        if c.num_experts:
+            p["moe"] = moe.moe_init(c, generator=gen, device=dev, groups=G)
+        elif c.d_ff:
+            p["mlp"] = mlp(c, G)
+        if c.is_encoder_decoder:             # cross attention is MHA
+            p["lnx"] = {"scale": zeros(G, d)}
+            p["xattn"] = attn(c, G, H)
         return p
+
+    def stages(c):
+        return [{f"pos{j}": block(c, groups, btype)
+                 for j, btype in enumerate(pattern)}
+                for pattern, groups in c.stages()]
 
     params = {
         "embed": normal((cfg.vocab_size, d), 0.02),
-        "final_norm": {"scale": torch.zeros(d, device=dev)},
-        "stages": [{f"pos{j}": block(groups, btype)
-                    for j, btype in enumerate(pattern)}
-                   for pattern, groups in cfg.stages()],
+        "final_norm": {"scale": zeros(d)},
+        "stages": stages(cfg),
     }
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab_size), 0.02)
+    if cfg.is_encoder_decoder:
+        feat = cfg.encoder_feature_dim or d
+        params["encoder"] = {
+            "frontend": normal((feat, d), 1 / math.sqrt(feat)),
+            "stages": stages(_encoder_cfg(cfg)),
+            "final_norm": {"scale": zeros(d)}}
     if dtype != torch.float32:
         params = tree_map(lambda a: a.to(dtype), params)
     return params
@@ -186,7 +227,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     and pattern position ``{"k", "v"}`` of ``[G, batch, C, KV, hd]``, or
     for a recurrent block ``{"h": [G, batch, W] f32, "conv": [G, batch,
     cw - 1, W]}``, or an xLSTM block's state (``xlstm.*_init_cache``:
-    f32 whatever ``dtype``, as in JAX)."""
+    f32 whatever ``dtype``, as in JAX).  An encoder-decoder model's
+    cache adds ``cross_kv``: per stage and position ``{"k", "v"}`` of
+    ``[G, batch, encoder_seq_len, H, hd]`` (zeros; ``prefill`` gives the
+    values)."""
     check_supported(cfg)
     dev = resolve_device(device)
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -210,7 +254,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                 "v": torch.zeros(groups, batch, C, KV, hd, dtype=dtype,
                                  device=dev)}
         stages.append(st)
-    return {"stages": stages}
+    cache = {"stages": stages}
+    if cfg.is_encoder_decoder:
+        shape = (batch, cfg.encoder_seq_len, cfg.num_heads, hd)
+        cache["cross_kv"] = [
+            {f"pos{j}": {n: torch.zeros((groups,) + shape, dtype=dtype,
+                                        device=dev) for n in ("k", "v")}
+             for j in range(len(pattern))}
+            for pattern, groups in cfg.stages()]
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
@@ -519,13 +571,53 @@ def _xlstm_block_apply(cfg, btype, params, x, *, mode, cache, active):
     return x + y
 
 
+def _cross_attend(cfg, params, x, xkv):
+    """The decoder's cross-attention branch (JAX ``_block_apply``): the
+    ``lnx``-normed residual's queries over the encoder's k/v ``xkv``
+    ([B, Se, H, hd] each), non-causal (every query at position 0, key j
+    at j), added to the residual."""
+    h = layers.rms_norm(params["lnx"], x, cfg.norm_eps)
+    B, S, _ = h.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    xq = (h @ params["xattn"]["wq"].to(h.dtype)).reshape(B, S, H, hd)
+    xk, xv = xkv
+    # a cache of another dtype than the compute dtype: JAX's einsum
+    # promotes
+    dt = torch.promote_types(xq.dtype, xk.dtype)
+    Se = xk.shape[1]
+    kp = torch.arange(Se, dtype=torch.int32, device=x.device)[None]
+    qp = torch.zeros(1, S, dtype=torch.int32, device=x.device)
+    o = layers.attention_full(xq.to(dt), xk.to(dt), xv.to(dt), qp.expand(
+        B, S), kp.expand(B, Se), causal=False)
+    wo = params["xattn"]["wo"].to(x.dtype).to(o.dtype)
+    return x + o.reshape(B, S, H * hd) @ wo
+
+
+def _prefill_rows(cfg, btype, k, v):
+    """The cache ``forward(mode="prefill")`` returns for one attention
+    block: its last ``C`` rows (``C`` = the window of a local block), a
+    local block's in the ring layout slot(p) = p % C that decode writes."""
+    S = k.shape[1]
+    C = _attn_cache_len(cfg, btype, S)
+    if btype == BLOCK_LOCAL_ATTN and C < S:
+        slots = torch.arange(S - C, S, device=k.device) % C
+        ck, cv = k.new_zeros(k[:, :C].shape), v.new_zeros(v[:, :C].shape)
+        ck[:, slots], cv[:, slots] = k[:, -C:], v[:, -C:]
+        return {"k": ck, "v": cv}
+    return {"k": k[:, -C:], "v": v[:, -C:]}
+
+
 def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
-                 pos=None, attn_impl="full", active=None, page_table=None):
+                 pos=None, attn_impl="full", active=None, page_table=None,
+                 xkv=None):
     """One block: ``(x, aux)``, ``aux`` the MoE router's aux loss (None
     for other blocks).  ``mode``: ``train`` (full sequence, no cache),
-    ``decode`` (one token, ``pos`` [B] write index; paged pools go
-    through ``page_table`` [B, NP] on the device) or ``prefill_slots``
-    (``pos`` = the chunk's ``PrefillRows``; attention blocks only)."""
+    ``prefill`` (``train``'s attention, the block's K/V rows written into
+    the empty dict ``cache``), ``decode`` (one token, ``pos`` [B] write
+    index; paged pools go through ``page_table`` [B, NP] on the device)
+    or ``prefill_slots`` (``pos`` = the chunk's ``PrefillRows``;
+    attention blocks only).  ``xkv``: an encoder-decoder row's cross k/v,
+    attended after self-attention."""
     if btype == BLOCK_RECURRENT:
         return _recurrent_block_apply(cfg, params, x, mode=mode,
                                       cache=cache, active=active), None
@@ -549,16 +641,20 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
                            attn_impl)
     elif mode == "prefill_slots":
         o = _prefill_attend(cfg, btype, q, k, v, cache, positions, pos)
-    elif mode == "train":
+    elif mode in ("train", "prefill"):
         # JAX's branch: chunked attention only past 2048 tokens
         attend = (layers.attention_chunked
                   if attn_impl == "chunked" and S > 2048
                   else layers.attention_full)
         o = attend(q, k, v, positions, positions, causal=True,
                    window=window, softcap=cfg.attn_softcap)
+        if mode == "prefill":
+            cache.update(_prefill_rows(cfg, btype, k, v))
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + o.reshape(B, S, H * hd) @ params["attn"]["wo"].to(x.dtype)
+    if xkv is not None and "xattn" in params:
+        x = _cross_attend(cfg, params, x, xkv)
     h = layers.rms_norm(params["ln2"], x, cfg.norm_eps)
     if "moe" in params:
         # the aux loss only where a loss is taken: serving drops it
@@ -591,12 +687,15 @@ def _resolve_overlay(bp, g, ov):
 
 def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                  pos=None, attn_impl="full", active=None, overlay=None,
-                 page_table=None):
+                 page_table=None, cross_kv=None):
     """Apply the stacked blocks in order: a Python loop over the ``[G]``
     rows of each stage (JAX scans them).  Returns ``(x, aux)``, the MoE
     blocks' aux losses added in layer order (an f32 zero without MoE
     blocks).  ``overlay``: optional {"s{si}/pos{j}": ov} of BlockLLM
-    active and probe rows (see ``_resolve_overlay``).  In train mode with
+    active and probe rows (see ``_resolve_overlay``).  ``cross_kv``: an
+    encoder-decoder model's per-row cross k/v (``_cross_kv``'s layout).
+    ``prefill`` mode fills ``caches`` (one empty dict per stage) with
+    each position's rows stacked ``[G, ...]``.  In train mode with
     ``cfg.remat`` each block is recomputed in the backward pass
     (``torch.utils.checkpoint``, where JAX wraps the scan body in
     ``jax.checkpoint``)."""
@@ -604,6 +703,7 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (pattern, groups) in enumerate(cfg.stages()):
         sp = stage_params[si]
+        filled = {f"pos{j}": [] for j in range(len(pattern))}
         for g in range(groups):
             for j, btype in enumerate(pattern):
                 bp = tree_map(lambda a: a[g], sp[f"pos{j}"])
@@ -611,11 +711,18 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                 if ov is not None:
                     bp = _resolve_overlay(bp, g, ov)
                 cj = None
-                if caches is not None:
+                if mode == "prefill":
+                    cj = {}
+                    filled[f"pos{j}"].append(cj)
+                elif caches is not None:
                     cj = {n: a[g] for n, a in caches[si][f"pos{j}"].items()}
+                xkv = None
+                if cross_kv is not None and btype in ATTN_BLOCKS:
+                    xkv = tuple(cross_kv[si][f"pos{j}"][n][g]
+                                for n in ("k", "v"))
                 kw = dict(positions=positions, mode=mode, cache=cj, pos=pos,
                           attn_impl=attn_impl, active=active,
-                          page_table=page_table)
+                          page_table=page_table, xkv=xkv)
                 if remat:
                     x, aux = torch.utils.checkpoint.checkpoint(
                         lambda h, bp=bp, btype=btype, kw=kw: _block_apply(
@@ -625,6 +732,10 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                     x, aux = _block_apply(cfg, btype, bp, x, **kw)
                 if aux is not None:
                     aux_total = aux_total + aux
+        if mode == "prefill":
+            caches[si].update({p: {n: torch.stack([c[n] for c in rows])
+                                   for n in ("k", "v")}
+                               for p, rows in filled.items()})
     return x, aux_total
 
 
@@ -633,16 +744,31 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, *, base_pos=0, pos_b=None):
+    """Token embeddings in the compute dtype; with absolute positions
+    (``rope_theta == 0``) plus the sinusoid of positions ``base_pos ..``
+    (or, for a decode step, of each slot's ``pos_b`` [B]), computed in
+    f32 and cast to the compute dtype before the add, as in JAX."""
     emb = params["embed"]
     if emb.requires_grad:
         # training the table: JAX's cast-then-gather, so the gradient
         # accumulates over repeated tokens in the compute dtype as in JAX;
         # F.embedding's backward is deterministic, where the CPU backward
         # of advanced indexing accumulates in parallel in no fixed order
-        return F.embedding(tokens, emb.to(_cdtype(cfg)))
-    # gather, then cast: the same values without casting the whole table
-    return emb[tokens].to(_cdtype(cfg))
+        x = F.embedding(tokens, emb.to(_cdtype(cfg)))
+    else:
+        # gather, then cast: the same values without casting the whole
+        # table
+        x = emb[tokens].to(_cdtype(cfg))
+    if not cfg.rope_theta:
+        if pos_b is None:
+            S = x.shape[1]
+            pe = layers.sinusoidal_positions(S + base_pos, cfg.d_model,
+                                             x.dtype, x.device)[base_pos:]
+        else:
+            pe = layers.sinusoid(pos_b.float(), cfg.d_model)[:, None]
+        x = x + pe.to(x.dtype)
+    return x
 
 
 def _unembed(params, cfg, x):
@@ -656,6 +782,72 @@ def _unembed(params, cfg, x):
 
 
 # ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+
+def _encoder_block(cfg, bp, h, positions):
+    """One encoder block: non-causal MHA through ``attention_full``, then
+    the MLP, each on its pre-norm residual."""
+    hn = layers.rms_norm(bp["ln1"], h, cfg.norm_eps)
+    B, S, _ = hn.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    a = bp["attn"]
+    q, k, v = ((hn @ a[w].to(hn.dtype)).reshape(B, S, H, hd)
+               for w in ("wq", "wk", "wv"))
+    o = layers.attention_full(q, k, v, positions, positions, causal=False)
+    h = h + o.reshape(B, S, H * hd) @ a["wo"].to(h.dtype)
+    hn = layers.rms_norm(bp["ln2"], h, cfg.norm_eps)
+    return h + layers.mlp_apply(bp["mlp"], hn, cfg.mlp_type)
+
+
+def _encode(params, cfg, frames):
+    """The encoder's output [B, Se, D]: ``frames @ frontend`` in the
+    compute dtype, plus the sinusoid, through the encoder's blocks (each
+    recomputed in the backward pass with ``cfg.remat``, as JAX wraps the
+    body in ``jax.checkpoint``), then its ``final_norm``."""
+    enc = params["encoder"]
+    cd = _cdtype(cfg)
+    x = frames.to(cd) @ enc["frontend"].to(cd)
+    B, S, _ = x.shape
+    x = x + layers.sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for si, (_, groups) in enumerate(_encoder_cfg(cfg).stages()):
+        sp = enc["stages"][si]["pos0"]
+        for g in range(groups):
+            bp = tree_map(lambda a: a[g], sp)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    lambda h, bp=bp: _encoder_block(cfg, bp, h, positions),
+                    x, use_reentrant=False)
+            else:
+                x = _encoder_block(cfg, bp, x, positions)
+    return layers.rms_norm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _cross_kv(params, cfg, enc_out):
+    """Each decoder row's cross k/v from the encoder output: per stage
+    and position ``{"k", "v"}`` of ``[G, B, Se, H, hd]`` (JAX's einsum
+    ``bsd,gde->gbse`` as one matmul per row).  Reads ``params["stages"]``
+    itself, never an overlay, as JAX does."""
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    B, Se, _ = enc_out.shape
+    out = []
+    for si, (pattern, groups) in enumerate(cfg.stages()):
+        st = {}
+        for j in range(len(pattern)):
+            xa = params["stages"][si][f"pos{j}"]["xattn"]
+            st[f"pos{j}"] = {n: torch.stack(
+                [enc_out @ xa[w][g].to(enc_out.dtype) for g in range(groups)]
+            ).reshape(groups, B, Se, H, hd)
+                for n, w in (("k", "wk"), ("v", "wv"))}
+        out.append(st)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
@@ -663,9 +855,12 @@ def _unembed(params, cfg, x):
 TRAIN_ATTN_IMPLS = ("full", "chunked")
 
 
-def _hidden(params, cfg, tokens, *, attn_impl, overlay=None):
-    """Final-norm hidden states [B, S, D] of a full-sequence pass, and
-    the MoE aux loss."""
+def _hidden(params, cfg, tokens, *, attn_impl, overlay=None, frames=None,
+            mode="train", caches=None):
+    """Final-norm hidden states [B, S, D] of a full-sequence pass, the
+    MoE aux loss, and an encoder-decoder model's cross k/v (else None).
+    ``frames`` [B, Se, F]: the encoder's input, required by (and only
+    by) an encoder-decoder model."""
     check_supported(cfg)
     if attn_impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: full-sequence attention "
@@ -674,20 +869,51 @@ def _hidden(params, cfg, tokens, *, attn_impl, overlay=None):
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs "
+                             f"the encoder's frames")
+        cross_kv = _cross_kv(params, cfg, _encode(params, cfg, frames))
     x, aux = _stack_apply(cfg, params["stages"], x, positions=positions,
-                          mode="train", overlay=overlay, attn_impl=attn_impl)
-    return layers.rms_norm(params["final_norm"], x, cfg.norm_eps), aux
+                          mode=mode, overlay=overlay, attn_impl=attn_impl,
+                          caches=caches, cross_kv=cross_kv)
+    return layers.rms_norm(params["final_norm"], x, cfg.norm_eps), aux, \
+        cross_kv
 
 
-def forward(params, cfg: ModelConfig, tokens, *, overlay=None,
-            attn_impl="chunked"):
+def forward(params, cfg: ModelConfig, tokens, *, frames=None, mode="train",
+            overlay=None, attn_impl="chunked"):
     """Full-sequence teacher-forced logits [B, S, vocab].  ``attn_impl``
     ``chunked`` (the default, as JAX's ``forward``) runs
     ``layers.attention_chunked`` past 2048 tokens, ``full`` always
-    ``attention_full``."""
-    hidden, _ = _hidden(params, cfg, tokens, overlay=overlay,
-                        attn_impl=attn_impl)
-    return _unembed(params, cfg, hidden)
+    ``attention_full``.  ``frames``: an encoder-decoder model's encoder
+    input [B, Se, F].  ``mode="prefill"`` returns ``(logits, cache)``,
+    the cache holding each attention block's K/V rows ([G, B, C, KV, hd]
+    in the compute dtype, C the sequence or a local block's window) and,
+    for an encoder-decoder model, ``cross_kv``."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward mode is train or prefill, got {mode!r}")
+    caches = [{} for _ in cfg.stages()] if mode == "prefill" else None
+    hidden, _, cross_kv = _hidden(params, cfg, tokens, overlay=overlay,
+                                  attn_impl=attn_impl, frames=frames,
+                                  mode=mode, caches=caches)
+    logits = _unembed(params, cfg, hidden)
+    if mode == "train":
+        return logits
+    cache = {"stages": caches}
+    if cross_kv is not None:
+        cache["cross_kv"] = cross_kv
+    return logits, cache
+
+
+def prefill(params, cfg: ModelConfig, batch, *, attn_impl="chunked"):
+    """Whole-sequence prefill: ``(logits [B, vocab] at the last position,
+    cache)`` (JAX's ``prefill``; the route to a filled ``cross_kv``)."""
+    logits, cache = forward(params, cfg, batch["tokens"],
+                            frames=batch.get("frames"), mode="prefill",
+                            attn_impl=attn_impl)
+    return logits[:, -1], cache
 
 
 def _labels_mask(batch):
@@ -737,7 +963,8 @@ def _chunked_xent(params, cfg, hidden, labels, mask, chunk):
 def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
             loss_chunk=None, overlay=None):
     """Next-token cross entropy plus the MoE aux loss (zero for other
-    families).  Returns ``(loss, metrics)``.
+    families).  Returns ``(loss, metrics)``.  An encoder-decoder model
+    reads its encoder input from ``batch["frames"]``.
 
     ``loss_chunk``: None => auto (chunked when S * V > 2**27, as JAX);
     0 => direct.  ``attn_impl``: ``full`` or ``chunked`` (blockwise
@@ -747,8 +974,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
     labels, mask = _labels_mask(batch)
     if loss_chunk is None:
         loss_chunk = 512 if S * cfg.vocab_size > (1 << 27) else 0
-    hidden, aux = _hidden(params, cfg, tokens, overlay=overlay,
-                          attn_impl=attn_impl)
+    hidden, aux, _ = _hidden(params, cfg, tokens, overlay=overlay,
+                             attn_impl=attn_impl, frames=batch.get("frames"))
     if loss_chunk:
         nll_sum = _chunked_xent(params, cfg, hidden, labels, mask,
                                 loss_chunk)
@@ -786,7 +1013,7 @@ def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,
                        table=None if page_table is None
                        else _host(page_table),
                        begin=None if begin is None else _host(begin))
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, base_pos=chunk_start)
     x, _ = _stack_apply(cfg, params["stages"], x, positions=positions,
                         mode="prefill_slots", caches=cache["stages"],
                         pos=rows, attn_impl=attn_impl)
@@ -849,7 +1076,8 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
                 attn_impl="full", active=None, page_table=None):
     """One decode step.  token [B, 1]; pos [B] int32 per-slot write
     index; ``active`` [B] bool (None = all slots) masks the in-place
-    cache writes.  Paged caches take ``page_table`` [B, NP] int32, copied
+    cache writes.  An encoder-decoder model attends to the cache's
+    ``cross_kv``.  Paged caches take ``page_table`` [B, NP] int32, copied
     to the device here once for every layer.  Returns ``(logits [B,
     vocab], cache)``."""
     if attn_impl not in ATTN_IMPLS:
@@ -864,10 +1092,11 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos, *,
     if page_table is not None:
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=dev)
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, pos_b=pos_b)
     x, _ = _stack_apply(cfg, params["stages"], x, positions=pos_b[:, None],
                         mode="decode", caches=cache["stages"], pos=pos_b,
                         attn_impl=attn_impl, active=active,
-                        page_table=page_table)
+                        page_table=page_table,
+                        cross_kv=cache.get("cross_kv"))
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], cache

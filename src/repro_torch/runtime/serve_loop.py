@@ -189,6 +189,13 @@ class DecodeServer:
         when ``config.sched.cache_bytes > 0``)."""
         config = config if config is not None else ServeConfig()
         model_lib.check_supported(cfg)
+        if cfg.is_encoder_decoder:
+            # requests carry no frames: an encoder-decoder model decodes
+            # at model level (``prefill``'s cross_kv, then decode_step)
+            raise NotImplementedError(
+                f"{cfg.name}: the server takes token-only models; decode "
+                f"an encoder-decoder model with model.prefill and "
+                f"model.decode_step")
         self.config = config
         self.device = model_lib.resolve_device(device)
         self.cfg = cfg

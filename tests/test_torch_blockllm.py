@@ -82,9 +82,11 @@ def _flat(tree, port):
                                       np.float32).ravel() for l in leaves])
 
 
-def run_trajectory(mode, arch="internlm2-1.8b", steps=STEPS, **kw):
+def run_trajectory(mode, arch="internlm2-1.8b", steps=STEPS, *,
+                   batch_extra=None, **kw):
     """Step the JAX and port trainers side by side for ``steps`` steps;
-    assert per step."""
+    assert per step.  ``batch_extra(cfg, step)``: more numpy arrays for
+    both packages' batch (an encoder-decoder model's ``frames``)."""
     jcfg, tcfg, jparams, tparams = _setup(arch, **kw)
     q8 = mode == "q8"
     jfused = {"off": "off", "plain": "interpret", "q8": "interpret"}[mode]
@@ -105,8 +107,10 @@ def run_trajectory(mode, arch="internlm2-1.8b", steps=STEPS, **kw):
     reselections = 0
     for step in range(steps):
         batch = pipe.batch(step)
-        lj = jh.train_step(batch)["loss"]
-        lt = th.train_step({"tokens": np.asarray(batch["tokens"])})["loss"]
+        extra = batch_extra(jcfg, step) if batch_extra else {}
+        lj = jh.train_step({**batch, **extra})["loss"]
+        lt = th.train_step({"tokens": np.asarray(batch["tokens"]),
+                            **extra})["loss"]
         np.testing.assert_allclose(lt, lj, rtol=1e-4, err_msg=f"step {step}")
         for key in ("stack_idx", "probe_idx", "active_leaves", "q",
                     "reselections"):

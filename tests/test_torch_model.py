@@ -148,6 +148,31 @@ def test_forward_logits_match_jax(tiny_cfg):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("arch", ["tiny", "local-ring"])
+def test_whole_sequence_prefill_matches_jax(tiny_cfg, arch):
+    """``prefill`` (``forward(mode="prefill")``): the last position's
+    logits and every block's K/V rows against JAX's ``prefill``; a local
+    block keeps its window's rows in the ring layout decode writes (16
+    tokens over a window of 8)."""
+    jcfg = (tiny_cfg.replace(dtype="float32") if arch == "tiny"
+            else _local_cfg())
+    jparams = _jax_params(jcfg)
+    toks = np.random.RandomState(4).randint(0, 128, (2, 16)).astype(np.int32)
+    jlast, jcache = jax.jit(lambda p, t: jmodel.prefill(
+        p, jcfg, {"tokens": t}))(jparams, jnp.asarray(toks))
+    with torch.no_grad():
+        last, cache = tmodel.prefill(_to_port(jparams), _port_cfg(jcfg),
+                                     {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(last.numpy(), np.asarray(jlast), **F32_TOL)
+    names, leaves, _ = _flatten_with_names(cache)
+    jnames, jleaves, _ = jflat(jcache)
+    assert names == jnames
+    for n, a, b in zip(names, leaves, jleaves):
+        assert tuple(a.shape) == tuple(b.shape), n
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=n,
+                                   **F32_TOL)
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_interop_round_trip_bit_exact(tiny_cfg, dtype):
     jparams = _jax_params(tiny_cfg, dtype)
@@ -212,10 +237,44 @@ def test_inactive_slot_cache_rows_stay_bit_exact(tiny_cfg):
 
 
 def test_unported_families_raise():
-    for arch in ("pixtral-12b", "whisper-large-v3"):
+    for arch in ("pixtral-12b",):
         cfg = tconfigs.reduce_config(tconfigs.get_config(arch), 8)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmodel.init_params(cfg, device="cpu")
+
+
+def test_whisper_init_and_forward():
+    """``whisper-large-v3``, reduced, inits with ``lnx`` / ``xattn`` on
+    every decoder row and an ``encoder`` subtree, and runs ``forward``
+    (with frames), ``loss_fn``, ``prefill`` and a decode step over the
+    prefill's ``cross_kv`` on the CPU: finite logits of the expected
+    shape; without frames ``forward`` raises."""
+    cfg = tconfigs.reduce_config(tconfigs.get_config("whisper-large-v3"), 8)
+    tmodel.check_supported(cfg)
+    params = tmodel.init_params(cfg, device="cpu")
+    blk = params["stages"][0]["pos0"]
+    assert {"lnx", "xattn"} <= set(blk) and "xattn" not in \
+        params["encoder"]["stages"][0]["pos0"]
+    assert set(params["encoder"]) == {"frontend", "stages", "final_norm"}
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    frames = torch.randn(2, cfg.encoder_seq_len, cfg.encoder_feature_dim,
+                         generator=g)
+    logits = tmodel.forward(params, cfg, toks, frames=frames)
+    loss, _ = tmodel.loss_fn(params, cfg, {"tokens": toks,
+                                           "frames": frames})
+    last, pre = tmodel.prefill(params, cfg, {"tokens": toks,
+                                             "frames": frames})
+    cache = tmodel.init_cache(cfg, 2, 16, device="cpu")
+    cache["cross_kv"] = pre["cross_kv"]
+    step, _ = tmodel.decode_step(params, cfg, cache, toks[:, :1],
+                                 np.zeros(2, np.int32))
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and torch.isfinite(loss)
+    assert torch.equal(last, logits[:, -1])
+    assert torch.isfinite(step).all()
+    with pytest.raises(ValueError, match="frames"):
+        tmodel.forward(params, cfg, toks)
 
 
 def test_xlstm_init_and_forward():
