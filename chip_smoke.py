@@ -192,31 +192,35 @@ What it does, failing (non-zero exit, no result line) on any error:
    masked-Adam launches from the selections, peak memory), then
    checkpoint -> crash -> resume -> export -> serve at 2 layers; (d)
    ``python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
-   --reduce 0`` (bf16, kernel attention, base + 2 demo tenants, 16
+   --reduce 0 --layers 8`` (8 of 32 layers: the serving legs are
+   host-bound; bf16, kernel attention, base + 2 demo tenants, 16
    requests over 8 slots x 16 new tokens), dense and ``--paged``, each
    twice: streams complete and bitwise a second run, one decode
    launch per layer per decode step, (token, slot) pairs dropped per
    leg, paged streams bitwise a dense run of the same requests when
    neither dropped a pair (else the first divergence and its top-2
-   margin); and a profile of the MoE decode step;
+   margin); and a profile of the MoE decode step at full depth;
 25. the xLSTM family (the port's slice 12), ``xlstm-1.3b`` (48 blocks,
    7 mLSTM : 1 sLSTM, d_model 2048, 4 heads, no attention): (a) at full
    width and 8 layers (one pattern) in f32, ``forward`` at B 2, S 512
    (two mLSTM chunks) and 8 ``decode_step``s from a fresh cache on the
    card within rtol 1e-4 of the largest CPU logit; (b) ``python -m
-   repro_torch.launch.train --arch xlstm-1.3b --reduce 0 --optimizer
-   blockllm --batch 8 --seq 256 --steps 8`` at full width and depth with
+   repro_torch.launch.train --arch xlstm-1.3b --reduce 0 --layers 16
+   --optimizer blockllm --batch 8 --seq 256 --steps 8`` at full width and
+   16 of 48 blocks (the sLSTM's time loop makes each step host-bound) with
    launch counts reset just before and read just after (phase 16's loss
    gates, masked-Adam launches from the selections, peak memory, step
    p50); (c) checkpoint -> crash -> resume -> export -> serve at 8
    layers (2 slots, so a slot is reused: its stream equals a fresh
    server's; no decode-attention launch); (d) ``python -m
-   repro_torch.launch.serve --arch xlstm-1.3b --reduce 0`` (bf16, base +
-   2 demo tenants, 16 requests over 8 slots x 16 new tokens, per-token
+   repro_torch.launch.serve --arch xlstm-1.3b --reduce 0 --layers 16``
+   (bf16, base + 2 demo tenants, 16 requests over 8 slots x 16 new
+   tokens, per-token
    priming) and a second run of its requests: streams complete and
    bitwise the second run, swap launches counted, no decode-attention
    launch, the first request admitted into a reused slot equal to a
-   fresh server's stream; and a profile of the xLSTM decode step;
+   fresh server's stream; and a profile of the xLSTM decode step at full
+   depth;
 26. the encoder-decoder family (the port's slice 13),
    ``whisper-large-v3`` (32 encoder + 32 decoder layers, d_model 1280,
    MHA 20 x 64, 1500 frames of 1280 stub features, sinusoidal positions):
@@ -242,9 +246,46 @@ What it does, failing (non-zero exit, no result line) on any error:
    per token, 16 new tokens: 32 decode-attention launches per step,
    streams bitwise a second run, teacher-forced kernel against full
    logits within 0.25, and a profile of the decode step;
+27. the VLM family (the port's slice 14), ``pixtral-12b`` (40 layers,
+   d_model 5120, GQA 32 / 8 at head_dim 128, vocab 131072, 256 stub patch
+   embeddings of 1024 projected in by ``vision_proj``), and whole-sequence
+   prefill of the recurrent families: (a) the decode kernel at G = 4,
+   head_dim 128 (B 8, KV 8, a 512-row cache, bf16 and f32 q) against its
+   plain version with phase 2's tolerances, and its time at contexts
+   288-302 beside the bound, the plain version and SDPA; (b) at full width
+   and 2 layers in f32, B 1 over 256 patches + 32 tokens, ``forward``'s
+   logits and ``loss_fn`` with its ``vision_proj`` gradient on the card
+   within rtol 1e-4 of the largest CPU value; (c) ``python -m
+   repro_torch.launch.train --arch pixtral-12b --reduce 0 --layers 8
+   --optimizer blockllm --batch 8 --seq 288 --steps 8`` with launch counts
+   reset just before and read just after (phase 16's loss gates,
+   masked-Adam launches from the selections, step p50, the peak under 70
+   GiB), then checkpoint -> crash -> resume -> export -> apply at 3 layers
+   (``blockllm+q8``, ``vision_proj`` always active, one of the 3 rows
+   selected, reselected after step 4): resume bitwise, the tenant's row
+   entries applied by the swap kernel, decoding the merged weights'
+   greedy streams; (d) bf16 decode at full width and depth, B 8:
+   ``prefill`` over [8, 256, 1024] patch embeddings and a 288-token
+   prompt, its rows in ``init_cache(8, 512)``, 16 greedy decode steps: 40
+   decode-attention launches per step (640), streams bitwise a second
+   run, and a profile of the decode step (the kernel's function is held
+   against its plain version in (a), and on the model path in f32 in
+   (b); in bf16 at 40 layers kernel and full-attention logits part by
+   more than phase 26's 0.25, so (d) holds none to them); (e) ``prefill`` of a
+   64-token prompt on ``recurrentgemma-2b`` at 5 layers (the scan kernel
+   launched once per RG-LRU block) and ``xlstm-1.3b`` at 8 layers, f32,
+   against the same prompt primed token by token: every cache leaf within
+   rtol 1e-4 of its largest value, and the greedy tokens after each;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
+
+Every checkpoint -> crash -> resume leg (phases 9, 17, 24, 25, 26 and
+27) runs 6 steps uninterrupted, then the same 6 steps checkpointed at
+step 3 and crashed after step 5, then resumes from step 3 to step 6
+without writing another checkpoint (a checkpoint at step 6 would never
+be read).  Each must reselect after its checkpoint: the uninterrupted
+run's selections exceed those in the checkpoint's host meta.
 
 It imports nothing of the JAX package.  Long logs (ptxas output, the
 profile tables) go to the ``OUT`` directory beside it; checkpoints and
@@ -254,11 +295,12 @@ lists, and are deleted at the end.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -318,21 +360,33 @@ FLASH_SWEEP = ((2, 256, 256, 4, 2, 64, True, 0),
 FLASH_MAIN = {"internlm2-1.8b": (2, 4096, 16, 8, 128, 0),
               "recurrentgemma-2b local": (2, 4096, 10, 1, 256, 2048)}
 LONG_BATCH, LONG_SEQ = 2, 4096     # phase 20
+# the crash -> resume legs: the run's steps, the checkpoint step and the
+# crash step; the resumed run writes no checkpoint (at full width each is
+# gigabytes of npz)
+CRASH_STEPS, CRASH_CKPT, CRASH_AT = 6, 3, 5
 # phase 24: the MoE family (slice 11)
 MOE_ARCH = "granite-moe-3b-a800m"
 MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--reduce", "0", "--optimizer",
                   "blockllm", "--batch", "8", "--seq", "256", "--steps", "8"]
-MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--reduce", "0", "--attn-impl",
+# the serving and xLSTM training legs below are host-bound (their step
+# time is Python and launch overhead), so their depth is cut to keep the
+# script inside its limit; the decode profiles keep the full depth
+MOE_SERVE_LAYERS = 8       # of 32
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--reduce", "0", "--layers",
+                  str(MOE_SERVE_LAYERS), "--attn-impl",
                   "kernel", "--demo-adapters", "2", "--slots", "8",
                   "--max-seq", "256", "--requests", "16", "--new-tokens",
                   "16"]
 MOE_LOGIT_RTOL = 1e-4     # card vs CPU, f32: relative to the largest logit
 # phase 25: the xLSTM family (slice 12)
 XLSTM_ARCH = "xlstm-1.3b"
-XLSTM_TRAIN_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--optimizer",
+XLSTM_LAYERS = 16          # of 48: two patterns (7 mLSTM : 1 sLSTM)
+XLSTM_TRAIN_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--layers",
+                    str(XLSTM_LAYERS), "--optimizer",
                     "blockllm", "--batch", "8", "--seq", "256", "--steps",
                     "8"]
-XLSTM_SERVE_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--demo-adapters",
+XLSTM_SERVE_ARGV = ["--arch", XLSTM_ARCH, "--reduce", "0", "--layers",
+                    str(XLSTM_LAYERS), "--demo-adapters",
                     "2", "--slots", "8", "--max-seq", "256", "--requests",
                     "16", "--new-tokens", "16"]
 XLSTM_LOGIT_RTOL = 1e-4   # card vs CPU, f32: relative to the largest logit
@@ -350,6 +404,29 @@ DECODE_G1_CASES = (
     ("G1 hd64 f32 cache", 1, 64, WHISPER_CONTEXT, 0, False, 0.0, "bf16",
      "f32"),
 )
+# phase 27: the pixtral VLM (slice 14) and whole-sequence prefill
+PIXTRAL_ARCH = "pixtral-12b"
+PIXTRAL_TEXT = 32          # text tokens after the 256 patch positions
+PIXTRAL_CONTEXT = 512      # rows of the decode cache
+PIXTRAL_NEW = 16           # greedy decode steps after the prefill
+# 8 layers: 13.1 GiB of f32 weights, the deepest cut whose BlockLLM peak
+# stays under 70 GiB by the earlier families' 3.2-5.5x the f32 weights
+PIXTRAL_TRAIN_LAYERS = 8
+PIXTRAL_TRAIN_ARGV = ["--arch", PIXTRAL_ARCH, "--reduce", "0", "--layers",
+                      str(PIXTRAL_TRAIN_LAYERS), "--optimizer", "blockllm",
+                      "--batch", "8", "--seq", str(256 + PIXTRAL_TEXT),
+                      "--steps", "8"]
+PIXTRAL_PEAK_GIB = 70.0
+PIXTRAL_RTOL = 1e-4        # card vs CPU, f32: relative to the largest value
+PREFILL_RTOL = 1e-4        # prefill vs per-token priming, f32: relative to
+                           # the leaf's largest value (sums in other orders)
+# pixtral-12b's decode shape (GQA 32 / 8, hd 128) over its bf16 cache
+DECODE_G4_CASES = (
+    ("G4 hd128 bf16", 4, 128, PIXTRAL_CONTEXT, 0, False, 0.0, "bf16",
+     "bf16"),
+    ("G4 hd128 f32 q", 4, 128, PIXTRAL_CONTEXT, 0, False, 0.0, "f32",
+     "bf16"),
+)
 
 
 def smi() -> str:
@@ -357,6 +434,26 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def host_yardstick(torch) -> str:
+    """The host's speed, for comparing the host-bound phases of two runs:
+    a fixed pure-Python loop and the host cost of one eager CUDA op (5000
+    in-place adds on one element, then a synchronize)."""
+    t0 = time.monotonic()
+    sum(i * i for i in range(2_000_000))
+    py_ms = (time.monotonic() - t0) * 1e3
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(5000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    op_us = (time.monotonic() - t0) * 1e6 / 5000
+    return (f"host yardstick: python loop {py_ms:.1f} ms, eager CUDA op "
+            f"{op_us:.2f} us")
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -427,6 +524,37 @@ def replay_bitwise(torch, fn, ref) -> bool:
     return all(torch.equal(o, ref) for o in outs + captured)
 
 
+def kernel_times(torch, prof) -> dict:
+    """``{kernel: [records, device us]}`` of a finished ``torch.profiler``
+    session, summed over its raw device records: what the device-type
+    rows of ``key_averages()`` hold, without the Python event per record
+    that ``key_averages()`` builds first (tens of seconds for the trace
+    of a full-depth training step).  Names are demangled as the
+    profiler's own rows are."""
+    from torch.autograd import DeviceType
+    out, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_async():
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        rec = out.setdefault(names[raw], [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.duration_ns() / 1e3
+    return out
+
+
+def kernel_table(times: dict, n: int, rows: int = 40) -> str:
+    """The ``rows`` kernels of ``kernel_times`` with the most device time,
+    per step of ``n``: the table each profile writes to ``OUT``."""
+    lines = [f"{'device ms/step':>14} {'calls/step':>10}  kernel"]
+    for name, (count, us) in sorted(times.items(),
+                                    key=lambda kv: -kv[1][1])[:rows]:
+        lines.append(f"{us / 1e3 / n:14.3f} {count / n:10.1f}  {name}")
+    return "\n".join(lines) + "\n"
+
+
 def profile_records(torch, fn, calls: int = 20):
     """({kernel: (launches per call, device us per launch)}, sessions
     run) of ``fn(i)`` over ``calls`` warm calls under ``torch.profiler``.
@@ -443,11 +571,11 @@ def profile_records(torch, fn, calls: int = 20):
             for i in range(calls):
                 fn(i)
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_time_total > 0:
-                name = e.key.split("(")[0].split("::")[-1].split("<")[0]
+        for key, (count, us) in kernel_times(torch, prof).items():
+            if us > 0:
+                name = key.split("(")[0].split("::")[-1].split("<")[0]
                 n, t = rec.get(name, (0, 0.0))
-                rec[name] = (n + e.count, t + e.device_time_total)
+                rec[name] = (n + count, t + us)
         if rec:
             break
         print(f"  profiler session {session + 1} recorded no device kernel")
@@ -1121,7 +1249,6 @@ def profile_steps(torch, step, label, desc, n=4):
     ``torch.profiler``: wall per step, device busy per step, the idle
     share, device ms per step by kind and the top kernels; the table goes
     to ``OUT``.  Returns ``(groups, wall_ms, busy)``."""
-    from torch.autograd import DeviceType
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1133,17 +1260,16 @@ def profile_steps(torch, step, label, desc, n=4):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / n
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    times = kernel_times(torch, prof)
+    busy = sum(us for _, us in times.values()) / 1e3 / n
     print(f"decode step profile, {label} ({desc}, {n} steps): wall "
           f"{wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step, idle "
           f"share {max(0.0, 1 - busy / wall_ms):.1%}")
     groups = {"decode attention (both passes)": 0.0, "gemm/gemv": 0.0,
               "elementwise/copy": 0.0, "other": 0.0}
-    for e in rows:
-        name = e.key.lower()
-        t = e.self_device_time_total / 1e3 / n
+    for key, (_, us) in times.items():
+        name = key.lower()
+        t = us / 1e3 / n
         if "decode_attention" in name:
             groups["decode attention (both passes)"] += t
         elif any(w in name for w in ("gemm", "gemv", "cutlass", "sm90_",
@@ -1156,12 +1282,11 @@ def profile_steps(torch, step, label, desc, n=4):
             groups["other"] += t
     print("  device ms/step by kind: " + ", ".join(
         f"{k} {v:.2f}" for k, v in groups.items()))
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
-              f"{e.count // n:5d} calls/step  {e.key[:70]}")
-    (OUT / f"decode_profile_{label}.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=40))
+    for key, (count, us) in sorted(times.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / 1e3 / n:8.3f} ms/step {count // n:5d} calls/step  "
+              f"{key[:70]}")
+    (OUT / f"decode_profile_{label}.txt").write_text(kernel_table(times, n))
     return groups, wall_ms, busy
 
 # --------------------------------------------------------------------- #
@@ -1654,7 +1779,6 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH,
     """2 steady BlockLLM steps under torch.profiler: wall vs device busy,
     the masked-Adam kernels' (and RG-LRU scan kernel's) share, the top
     kernels."""
-    from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     n = 2
@@ -1664,11 +1788,10 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH,
             state, _ = core.step(state, pipe.batch(s))
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / n
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
-    adam = sum(e.self_device_time_total for e in rows
-               if "masked_adam" in e.key) / 1e3 / n
+    times = kernel_times(torch, prof)
+    busy = sum(us for _, us in times.values()) / 1e3 / n
+    adam = sum(us for key, (_, us) in times.items()
+               if "masked_adam" in key) / 1e3 / n
     print(f"train step profile ({arch}, blockllm f32 moments, fused "
           f"kernel, {label}, {n} steady steps): wall {wall_ms:.1f} "
           f"ms/step, device busy {busy:.1f} ms/step, idle share "
@@ -1676,9 +1799,9 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH,
           f"{adam:.3f} ms/step ({adam / max(busy, 1e-9):.1%} of busy)")
     groups = {"gemm": 0.0, "elementwise/copy": 0.0, "reduce/softmax": 0.0,
               "masked_adam": 0.0, "rglru scan": 0.0, "other": 0.0}
-    for e in rows:
-        name = e.key.lower()
-        t = e.self_device_time_total / 1e3 / n
+    for key, (_, us) in times.items():
+        name = key.lower()
+        t = us / 1e3 / n
         if "masked_adam" in name:
             groups["masked_adam"] += t
         elif "rglru_scan" in name:
@@ -1702,13 +1825,12 @@ def profile_train(torch, core, state, pipe, first, arch=ARCH,
         # passes run inside its kernel
         print(f"  rglru scan kernels {groups['rglru scan']:.3f} ms/step "
               f"({groups['rglru scan'] / max(busy, 1e-9):.1%} of busy)")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
-              f"{e.count // n:5d} calls/step  {e.key[:70]}")
+    for key, (count, us) in sorted(times.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / 1e3 / n:8.3f} ms/step {count // n:5d} calls/step  "
+              f"{key[:70]}")
     (OUT / f"train_profile_{arch}_{label.split(',')[0].replace(' ', '')}"
-           f".txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=40))
+           f".txt").write_text(kernel_table(times, n))
     return state, dict(wall_ms=wall_ms, busy_ms=busy, **groups)
 
 
@@ -1788,12 +1910,105 @@ def train_api(torch, np, ops, q8_peak, q8_report, q8_p50):
     return launches, peaks
 
 
+@contextmanager
+def payload_io():
+    """Files, bytes and seconds of the payloads (checkpoints, base
+    snapshots, adapter deltas) written and read inside the block:
+    ``{"written": [files, bytes, s], "read": [...]}``."""
+    from repro_torch.checkpoint import checkpointer as ck
+    rec = {"written": [0, 0, 0.0], "read": [0, 0, 0.0]}
+    write, read = ck.write_payload, ck.read_payload
+
+    def add(kind, leaves, t0):
+        r = rec[kind]
+        r[0] += 1
+        r[1] += sum(leaf.nbytes for leaf in leaves)
+        r[2] += time.monotonic() - t0
+
+    def timed_write(final, named, **kw):
+        t0 = time.monotonic()
+        out = write(final, named, **kw)
+        add("written", named.values(), t0)
+        return out
+
+    def timed_read(path):
+        t0 = time.monotonic()
+        out = read(path)
+        add("read", out[0].values(), t0)
+        return out
+
+    ck.write_payload, ck.read_payload = timed_write, timed_read
+    try:
+        yield rec
+    finally:
+        ck.write_payload, ck.read_payload = write, read
+
+
+def crash_resume(torch, ops, handle, batch_fn, lcfg):
+    """The crash -> resume legs' runs: ``CRASH_STEPS`` steps of a fresh
+    ``handle()`` uninterrupted, then the same steps under ``lcfg`` (its
+    checkpoint and adapter directories) checkpointed at ``CRASH_CKPT`` and
+    crashed after ``CRASH_AT``, then a fresh handle resumed from that
+    checkpoint to ``CRASH_STEPS`` without writing another.  Fails unless
+    the resumed state equals the uninterrupted one bitwise, host meta
+    included, and the run reselected after its checkpoint.  Returns
+    ``(resumed, its leaf names, its launches, seconds)``."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names, \
+        read_meta
+    from repro_torch.runtime import train_loop
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    t0 = time.monotonic()
+    whole = handle()
+    train_loop.run(whole, batch_fn, train_loop.TrainLoopConfig(
+        total_steps=CRASH_STEPS, log_every=0))
+    lcfg = dataclasses.replace(lcfg, total_steps=CRASH_STEPS,
+                               ckpt_every=CRASH_CKPT, log_every=0)
+    with payload_io() as io:
+        crashed = handle()
+        try:
+            train_loop.run(crashed, batch_fn, lcfg, crash_at=CRASH_AT)
+            raise AssertionError("the simulated crash did not happen")
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        del crashed
+        ops.reset_launches()
+        resumed = handle()
+        train_loop.run(resumed, batch_fn,
+                       dataclasses.replace(lcfg, ckpt_every=CRASH_STEPS + 1))
+        torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    na, la, _ = _flatten_with_names(whole.state.arrays)
+    nb, lb, _ = _flatten_with_names(resumed.state.arrays)
+    same = (na == nb and resumed.state.meta == whole.state.meta and all(
+        a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                           b.reshape(-1).view(torch.uint8))
+        for a, b in zip(la, lb)))
+    at_ckpt = read_meta(lcfg.ckpt_dir, CRASH_CKPT)["host"]["reselections"]
+    total = whole.state.meta["reselections"]
+    print(f"  crash -> resume: ckpt at {CRASH_CKPT}, crash at {CRASH_AT}, "
+          f"resumed to {CRASH_STEPS}; {at_ckpt} selections at the "
+          f"checkpoint, {total} at the end; resumed == uninterrupted "
+          f"bitwise over {len(la)} leaves and the host meta: {same}; "
+          f"payload files (checkpoint, base snapshot, deltas) "
+          + ", ".join(f"{n} {kind} ({b / 2 ** 30:.2f} GiB, {sec:.1f} s)"
+                      for kind, (n, b, sec) in io.items()))
+    if not same:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted run")
+    if total <= at_ckpt:
+        raise AssertionError("the run did not reselect after its checkpoint")
+    return resumed, na, launches, time.monotonic() - t0
+
+
 def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
     """Checkpoint -> crash -> resume -> export -> serve, full width, depth
     cut to ``layers`` (full depth writes about 12 GB of npz per
-    checkpoint).  blockllm+q8 (the fused Q8 kernel), patience 2 so it
-    reselects, the leaf units always active (restore takes the fresh
-    state's structure).  The tenant is served over ``slots`` slots.  A
+    checkpoint), through ``crash_resume``.  blockllm+q8 (the fused Q8
+    kernel), patience 2 so it reselects, the leaf units always active
+    (restore takes the fresh state's structure).  The tenant is served over ``slots`` slots.  A
     model with recurrent blocks is primed token by token: there the
     decode-attention launches must equal (local layers) x (decode passes,
     priming included), and the last request, in a reused slot, must give
@@ -1804,7 +2019,6 @@ def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
     import shutil
     from repro_torch import trainers
     from repro_torch.adapters import AdapterRegistry, copy_tree
-    from repro_torch.checkpoint.checkpointer import _flatten_with_names
     from repro_torch.configs.base import get_config
     from repro_torch.core.blockllm import BlockLLMConfig
     from repro_torch.core.selection import SelectorConfig
@@ -1829,42 +2043,13 @@ def checkpoint_export_serve(torch, np, ops, arch=ARCH, layers=4, slots=4):
         return trainers.TrainerHandle(core, core.init(None,
                                                       copy_tree(params0)))
 
-    shutil.rmtree(SCRATCH, ignore_errors=True)
-    t0 = time.monotonic()
-    whole = handle()
-    train_loop.run(whole, pipe.batch, train_loop.TrainLoopConfig(
-        total_steps=6, log_every=0))
-    lcfg = train_loop.TrainLoopConfig(
-        total_steps=6, ckpt_every=3, log_every=0,
-        ckpt_dir=str(SCRATCH / "ckpt"), adapter_dir=str(SCRATCH / "adapters"),
-        adapter_id="tuned")
-    crashed = handle()
-    try:
-        train_loop.run(crashed, pipe.batch, lcfg, crash_at=5)
-        raise AssertionError("the simulated crash did not happen")
-    except RuntimeError as e:
-        if "simulated node failure" not in str(e):
-            raise
-    del crashed
-    resumed = handle()
-    train_loop.run(resumed, pipe.batch, lcfg)
-    torch.cuda.synchronize()
-    na, la, _ = _flatten_with_names(whole.state.arrays)
-    nb, lb, _ = _flatten_with_names(resumed.state.arrays)
-    same = (na == nb and resumed.state.meta == whole.state.meta and all(
-        a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
-                                           b.reshape(-1).view(torch.uint8))
-        for a, b in zip(la, lb)))
+    resumed, _, _, secs = crash_resume(
+        torch, ops, handle, pipe.batch, train_loop.TrainLoopConfig(
+            ckpt_dir=str(SCRATCH / "ckpt"),
+            adapter_dir=str(SCRATCH / "adapters"), adapter_id="tuned"))
     print(f"crash-resume ({arch} width, {layers} layers, blockllm+q8, "
-          f"stages {cfg.stages()}, ckpt at 3, "
-          f"crash at 5, resumed to 6; {whole.state.meta['reselections']} "
-          f"selections): resumed == uninterrupted bitwise over {len(la)} "
-          f"leaves and the host meta: {same} "
-          f"({time.monotonic() - t0:.1f} s with checkpoint I/O)")
-    if not same:
-        raise AssertionError("the resumed run differs from the "
-                             "uninterrupted run")
-    del whole
+          f"stages {cfg.stages()}): resumed == uninterrupted ({secs:.1f} s "
+          f"with checkpoint I/O)")
     registry = AdapterRegistry(SCRATCH / "adapters")
     delta = registry.get("tuned")
     print(f"exported tenant 'tuned': {delta.num_rows()} rows, "
@@ -2128,9 +2313,9 @@ def check_decode_attention_g10(torch, da, results):
                 da.decode_attention_cuda(q, kc, vc, pos, **kw)
             torch.cuda.synchronize()
         split = ", ".join(
-            f"{e.key.split('(')[0].split('::')[-1]} "
-            f"{e.device_time_total / e.count:.2f} us"
-            for e in prof.key_averages() if e.device_time_total > 0)
+            f"{key.split('(')[0].split('::')[-1]} {us / count:.2f} us"
+            for key, (count, us) in kernel_times(torch, prof).items()
+            if us > 0)
         print(f"decode_attention profile [G10 hd256 ring 2048] {name}, per "
               f"call: {split}")
     del ks, vs
@@ -2478,7 +2663,6 @@ def long_context_attention_ms(torch, cfg, B, S):
     time) of one attention block's chunked attention as a remat training
     step runs it: the forward, then under the block's recompute the
     forward again and, per q-chunk, its recompute and backward."""
-    from torch.autograd import DeviceType
     from repro_torch.models import layers
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = flash_inputs(torch, B, S, S, H, KV, hd, torch.bfloat16, 22)
@@ -2498,8 +2682,7 @@ def long_context_attention_ms(torch, cfg, B, S):
     with torch.profiler.profile(activities=acts) as prof:
         once(0)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+    return sum(us for _, us in kernel_times(torch, prof).values()) / 1e3
 
 
 def long_context_train(torch, np, ops):
@@ -3288,11 +3471,13 @@ def family_train_main_path(torch, np, ops, argv=MOE_TRAIN_ARGV,
                            label="moe"):
     """``python -m repro_torch.launch.train`` with ``argv`` (phase 24 (c):
     ``--arch granite-moe-3b-a800m --reduce 0 --optimizer blockllm --batch
-    8 --seq 256 --steps 8``; phase 25 (b): ``xlstm-1.3b`` likewise; full
-    width and depth, f32 moments, the fused kernel) with the launch
+    8 --seq 256 --steps 8`` at full depth; phase 25 (b): ``xlstm-1.3b``
+    likewise at ``XLSTM_LAYERS`` blocks; full width, f32 moments, the
+    fused kernel) with the launch
     counts reset just before and read just after: losses finite, the
-    first within 1.0 of ln(vocab), none 0.5 above it; the aux loss of
-    every step reported, > 0 for an MoE model and 0 without one;
+    first within 1.0 of the initial model's expected loss, none 0.5
+    above it; the aux loss of every step reported, > 0 for an MoE model
+    and 0 without one;
     masked-Adam launches one per selected leaf per non-refresh step (the
     selections recorded as the loop calls ``TrainerHandle.train_step``);
     peak device memory."""
@@ -3352,9 +3537,15 @@ def family_train_main_path(torch, np, ops, argv=MOE_TRAIN_ARGV,
     if not (np.isfinite(losses).all() and len(losses) == 8):
         raise AssertionError(f"{label} train main path: non-finite or "
                              f"missing loss")
-    if abs(losses[0] - np.log(cfg.vocab_size)) > 1.0:
+    # the logits are the unit-RMS final hidden state times the N(0, 0.02^2)
+    # head (or tied embedding), so about N(0, s^2) with s^2 = 0.02^2
+    # d_model, and E[logsumexp] - E[gold] is ln(vocab) + s^2 / 2: 0.26 to
+    # 0.41 above ln(vocab) at d_model 1280 to 2048, 1.02 at 5120
+    want = np.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    if abs(losses[0] - want) > 1.0:
         raise AssertionError(f"first loss {losses[0]:.3f} is not near "
-                             f"ln(vocab) = {np.log(cfg.vocab_size):.3f}")
+                             f"{want:.3f} (ln(vocab) = "
+                             f"{np.log(cfg.vocab_size):.3f})")
     if max(losses) > losses[0] + 0.5:
         raise AssertionError("the loss rose more than 0.5 above the first")
     moe_model = bool(cfg.num_experts)
@@ -3417,7 +3608,7 @@ def moe_rerun(srv, reqs, config=None):
 
 def moe_serving(torch, np, ops):
     """(d) ``python -m repro_torch.launch.serve --arch
-    granite-moe-3b-a800m --reduce 0`` at full width and depth, bf16,
+    granite-moe-3b-a800m --reduce 0 --layers 8`` at full width, bf16,
     kernel attention (G = 3), base + 2 demo tenants, 16 requests over 8
     slots x 16 new tokens, dense and ``--paged`` (a shared 24-token
     system prompt).  Each launcher run is followed by a second run of
@@ -3427,10 +3618,9 @@ def moe_serving(torch, np, ops):
     runs; paged streams bitwise a dense run of the same requests when
     neither dropped a (token, slot) pair, else the first divergence and
     its top-2 logit margin are printed."""
-    from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     from repro_torch.runtime.serve_config import KVConfig
-    L = get_config(MOE_ARCH).num_layers
+    L = MOE_SERVE_LAYERS
     legs = {}
     for name, argv in (("dense", MOE_SERVE_ARGV),
                        ("paged", MOE_SERVE_ARGV + ["--paged"])):
@@ -3501,7 +3691,8 @@ def moe_family(torch, np, ops, da, results, card):
     """Phase 24: (a) decode attention at G = 3, (b) card vs CPU at 2
     layers, (c) BlockLLM training at full width and depth, then crash ->
     resume -> export -> serve at 2 layers, (d) serving at full width and
-    depth, dense and paged, and the MoE decode step's profile."""
+    ``MOE_SERVE_LAYERS`` layers, dense and paged, and the MoE decode
+    step's profile at full depth."""
     t0 = time.monotonic()
     g = torch.Generator("cuda").manual_seed(24)
     errs = decode_cases(torch, da, DECODE_G3_CASES, g)
@@ -3524,7 +3715,8 @@ def moe_family(torch, np, ops, da, results, card):
           f"training and crash-resume-export-serve {t2 - t1:.1f} s, serving "
           f"and profile {time.monotonic() - t2:.1f} s; training peak "
           f"{peak / 2 ** 30:.2f} GiB, step p50 {p50:.1f} ms; decode step "
-          f"wall {wall_ms:.2f} ms, busy {busy:.2f} ms; drops dense "
+          f"(32 layers) wall {wall_ms:.2f} ms, busy {busy:.2f} ms; serving "
+          f"({MOE_SERVE_LAYERS} layers) drops dense "
           f"{legs['dense']['dropped']} of {legs['dense']['pairs']}, paged "
           f"{legs['paged']['dropped']} of {legs['paged']['pairs']} ({card})")
     return launches, legs
@@ -3586,7 +3778,7 @@ def xlstm_card_vs_cpu(torch, np):
 
 def xlstm_serving(torch, np, ops):
     """(d) ``python -m repro_torch.launch.serve --arch xlstm-1.3b
-    --reduce 0`` at full width and depth, bf16, base + 2 demo tenants,
+    --reduce 0 --layers 16`` at full width, bf16, base + 2 demo tenants,
     16 requests over 8 slots x 16 new tokens (per-token priming), then a
     second run of its requests on a fresh server over the same base
     weights and tenants, then the first request admitted into a slot an
@@ -3665,9 +3857,9 @@ def xlstm_serving(torch, np, ops):
 
 def xlstm_family(torch, np, ops, card):
     """Phase 25: (a) card vs CPU at 8 layers, (b) BlockLLM training at
-    full width and depth, (c) crash -> resume -> export -> serve at 8
-    layers, (d) serving at full width and depth and the xLSTM decode
-    step's profile."""
+    full width and ``XLSTM_LAYERS`` blocks, (c) crash -> resume -> export
+    -> serve at 8 layers, (d) serving at full width and ``XLSTM_LAYERS``
+    blocks and the xLSTM decode step's profile at full depth."""
     t0 = time.monotonic()
     xlstm_card_vs_cpu(torch, np)
     t1 = time.monotonic()
@@ -3683,9 +3875,10 @@ def xlstm_family(torch, np, ops, card):
     print(f"phase 25 ({XLSTM_ARCH}): card vs CPU {t1 - t0:.1f} s, training "
           f"{t2 - t1:.1f} s, crash-resume-export-serve {t3 - t2:.1f} s, "
           f"serving and profile {time.monotonic() - t3:.1f} s; training "
-          f"peak {peak / 2 ** 30:.2f} GiB, step p50 {p50:.1f} ms; serving "
-          f"step p50 {leg['p50']:.2f} ms; decode step wall {wall_ms:.2f} ms, "
-          f"busy {busy:.2f} ms, idle {max(0.0, 1 - busy / wall_ms):.1%} "
+          f"({XLSTM_LAYERS} blocks) peak {peak / 2 ** 30:.2f} GiB, step p50 "
+          f"{p50:.1f} ms; serving ({XLSTM_LAYERS} blocks) step p50 "
+          f"{leg['p50']:.2f} ms; decode step (48 blocks) wall {wall_ms:.2f} "
+          f"ms, busy {busy:.2f} ms, idle {max(0.0, 1 - busy / wall_ms):.1%} "
           f"({card})")
     return launches, leg["launches"]
 
@@ -3861,7 +4054,6 @@ def whisper_crash_resume_apply(torch, np, ops):
     import shutil
     from repro_torch import trainers
     from repro_torch.adapters import AdapterRegistry, apply_delta, copy_tree
-    from repro_torch.checkpoint.checkpointer import _flatten_with_names
     from repro_torch.configs.base import get_config
     from repro_torch.core.blockllm import BlockLLMConfig
     from repro_torch.core.selection import SelectorConfig
@@ -3891,43 +4083,14 @@ def whisper_crash_resume_apply(torch, np, ops):
         return trainers.TrainerHandle(core, core.init(None,
                                                       copy_tree(params0)))
 
-    shutil.rmtree(SCRATCH, ignore_errors=True)
-    t0 = time.monotonic()
-    whole = handle()
-    train_loop.run(whole, batch_fn, train_loop.TrainLoopConfig(
-        total_steps=6, log_every=0))
-    lcfg = train_loop.TrainLoopConfig(
-        total_steps=6, ckpt_every=3, log_every=0,
-        ckpt_dir=str(SCRATCH / "ckpt"), adapter_dir=str(SCRATCH / "adapters"),
-        adapter_id="tuned")
-    crashed = handle()
-    try:
-        train_loop.run(crashed, batch_fn, lcfg, crash_at=5)
-        raise AssertionError("the simulated crash did not happen")
-    except RuntimeError as e:
-        if "simulated node failure" not in str(e):
-            raise
-    del crashed
-    resumed = handle()
-    train_loop.run(resumed, batch_fn, lcfg)
-    torch.cuda.synchronize()
-    na, la, _ = _flatten_with_names(whole.state.arrays)
-    nb, lb, _ = _flatten_with_names(resumed.state.arrays)
-    same = (na == nb and resumed.state.meta == whole.state.meta and all(
-        a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
-                                           b.reshape(-1).view(torch.uint8))
-        for a, b in zip(la, lb)))
+    resumed, na, _, secs = crash_resume(
+        torch, ops, handle, batch_fn, train_loop.TrainLoopConfig(
+            ckpt_dir=str(SCRATCH / "ckpt"),
+            adapter_dir=str(SCRATCH / "adapters"), adapter_id="tuned"))
     enc = sum(n.startswith("sel/leaves/encoder/") for n in na)
     print(f"crash-resume ({WHISPER_ARCH} width, 2 encoder + 2 decoder "
-          f"layers, blockllm+q8, the encoder's {enc} leaves always active, "
-          f"ckpt at 3, crash at 5, resumed to 6; "
-          f"{whole.state.meta['reselections']} selections): resumed == "
-          f"uninterrupted bitwise over {len(la)} leaves and the host meta: "
-          f"{same} ({time.monotonic() - t0:.1f} s with checkpoint I/O)")
-    if not same:
-        raise AssertionError("whisper: the resumed run differs from the "
-                             "uninterrupted run")
-    del whole
+          f"layers, blockllm+q8, the encoder's {enc} leaves always active): "
+          f"resumed == uninterrupted ({secs:.1f} s with checkpoint I/O)")
     delta = AdapterRegistry(SCRATCH / "adapters").get("tuned")
     row_entries = sum(e.idx is not None for e in delta.entries.values())
     ops.reset_launches()
@@ -4064,6 +4227,439 @@ def whisper_family(torch, np, ops, da, results, card):
     return launches, swaps, dec
 
 
+# --------------------------------------------------------------------- #
+# phase 27: the pixtral VLM (slice 14) and whole-sequence prefill
+# --------------------------------------------------------------------- #
+
+
+def cache_from_prefill(torch, cfg, pre, B, max_seq, dtype, device="cuda"):
+    """``init_cache(B, max_seq)`` with ``prefill``'s cache copied in: an
+    attention block's rows into its first rows (a local block's in their
+    ring slots, which at a prompt shorter than the window are the same),
+    a recurrent block's final state whole."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.models import model as model_lib
+    cache = model_lib.init_cache(cfg, B, max_seq, dtype=dtype, device=device)
+    names, dst, _ = _flatten_with_names(cache["stages"])
+    src_names, src, _ = _flatten_with_names(pre["stages"])
+    if names != src_names:
+        raise AssertionError(f"prefill cache leaves {src_names} are not "
+                             f"init_cache's {names}")
+    for a, b in zip(dst, src):
+        a[:, :, :b.shape[2]] = b
+    return cache
+
+
+def pixtral_greedy(torch, cfg, params, tokens, patches, impl, fed=None):
+    """Model-level greedy decode of a VLM: ``prefill`` over the patch
+    embeddings and the prompt (its last logits give the first token), its
+    rows copied into ``init_cache(B, 512)``, then ``PIXTRAL_NEW``
+    ``decode_step``s feeding each argmax back (or, teacher-forced, the
+    tokens ``fed``).  Returns ``(streams [B, PIXTRAL_NEW + 1], per-step
+    logits)``."""
+    from repro_torch.models import model as model_lib
+    B, S = tokens.shape
+    with torch.no_grad():
+        last, pre = model_lib.prefill(params, cfg, {"tokens": tokens,
+                                                    "patch_embeds": patches})
+        cache = cache_from_prefill(torch, cfg, pre, B, PIXTRAL_CONTEXT,
+                                   torch.bfloat16)
+        del pre
+        out, logits = [last.argmax(-1)], [last.float()]
+        for i in range(PIXTRAL_NEW):
+            cur = fed[:, i:i + 1] if fed is not None else out[-1][:, None]
+            lg, _ = model_lib.decode_step(
+                params, cfg, cache, cur,
+                torch.full((B,), S + i, dtype=torch.int32, device="cuda"),
+                attn_impl=impl)
+            logits.append(lg.float())
+            out.append(lg.argmax(-1))
+    return torch.stack(out, 1), logits
+
+
+def pixtral_card_vs_cpu(torch, np):
+    """(b) Full width, 2 layers, f32, B 1 over 256 patch embeddings and 32
+    text tokens: ``forward(mode="prefill")``'s logits, 8 teacher-forced
+    ``decode_step``s from ``init_cache(1, 512)`` holding the prefill's
+    rows (kernel attention at G = 4 on the card, plain on the CPU), and
+    ``loss_fn`` with its gradient with respect to ``vision_proj``, on the
+    card against the port's CPU run on the same weights (drawn once on
+    the card, copied to the host): each within rtol 1e-4 of the largest
+    CPU value.  Returns the decode-attention launches on the card."""
+    from repro_torch.checkpoint.checkpointer import tree_map
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    t0 = time.monotonic()
+    cfg = get_config(PIXTRAL_ARCH).replace(num_layers=2, dtype="float32")
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(27), device="cuda")
+    host = tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(27)
+    S = cfg.num_patches + PIXTRAL_TEXT
+    toks = rng.integers(0, cfg.vocab_size, (1, S))
+    patches = rng.standard_normal((1, cfg.num_patches,
+                                   cfg.vision_embed_dim), np.float32)
+    fed = rng.integers(0, cfg.vocab_size, (8, 1, 1))
+
+    def run(dev, p, impl):
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "patch_embeds": torch.as_tensor(patches, device=dev)}
+        with torch.no_grad():
+            logits, pre = model_lib.forward(
+                p, cfg, batch["tokens"], patch_embeds=batch["patch_embeds"],
+                mode="prefill")
+            outs = [logits]
+            cache = cache_from_prefill(torch, cfg, pre, 1, PIXTRAL_CONTEXT,
+                                       torch.float32, device=dev)
+            for t, tok in enumerate(fed):
+                lg, _ = model_lib.decode_step(
+                    p, cfg, cache, torch.as_tensor(tok, device=dev),
+                    torch.full((1,), S + t, dtype=torch.int32, device=dev),
+                    attn_impl=impl)
+                outs.append(lg)
+        vp = p["vision_proj"].detach().requires_grad_()
+        loss, _ = model_lib.loss_fn({**p, "vision_proj": vp}, cfg, batch,
+                                    loss_chunk=0)
+        grad, = torch.autograd.grad(loss, vp)
+        return [o.cpu() for o in outs] + [loss.detach().cpu(), grad.cpu()]
+
+    ops.reset_launches()
+    card = run("cuda", params, "kernel")
+    launched = ops.LAUNCHES["decode_attention"]
+    t1 = time.monotonic()
+    cpu = run("cpu", host, "full")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    r = [rel(a, b) for a, b in zip(card, cpu)]
+    ok = (max(r) <= PIXTRAL_RTOL and launched == 2 * len(fed)
+          and all(bool(torch.isfinite(a).all()) for a in card))
+    print(f"pixtral card vs CPU ({PIXTRAL_ARCH}, full width, 2 layers, f32, "
+          f"B 1, {cfg.num_patches} patches + {PIXTRAL_TEXT} tokens): "
+          f"max|card-cpu| / max|cpu| forward {r[0]:.2e}, decode steps "
+          f"{[float(f'{x:.2e}') for x in r[1:-2]]}, loss {r[-2]:.2e} "
+          f"({float(cpu[-2]):.5f}), vision_proj gradient {r[-1]:.2e} (rtol "
+          f"{PIXTRAL_RTOL}); decode_attention launches {launched} (2 layers "
+          f"x {len(fed)} steps); card {t1 - t0:.1f} s with init, CPU "
+          f"{time.monotonic() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pixtral: the card disagrees with the CPU")
+    del params, host
+    torch.cuda.empty_cache()
+    return launched
+
+
+def pixtral_train(torch, np, ops):
+    """(c) ``python -m repro_torch.launch.train --arch pixtral-12b --reduce
+    0 --layers 8 --optimizer blockllm --batch 8 --seq 288 --steps 8``
+    through ``family_train_main_path`` (its gates; the launcher draws the
+    patch embeddings per step), and the peak under ``PIXTRAL_PEAK_GIB``."""
+    launches, peak, p50 = family_train_main_path(
+        torch, np, ops, argv=PIXTRAL_TRAIN_ARGV, label="pixtral")
+    print(f"pixtral train: {PIXTRAL_TRAIN_LAYERS} of 40 layers at full "
+          f"width, peak {peak / 2 ** 30:.2f} GiB (limit {PIXTRAL_PEAK_GIB})")
+    if peak / 2 ** 30 >= PIXTRAL_PEAK_GIB:
+        raise AssertionError("pixtral train: the peak is not under the limit")
+    return launches, peak, p50
+
+
+def pixtral_crash_resume_apply(torch, np, ops):
+    """(c) Checkpoint -> crash -> resume -> export -> apply at full width
+    and 3 layers: ``blockllm+q8`` (the fused Q8 kernel), ``vision_proj``
+    the one selectable leaf and always active with ``final_norm`` (the
+    active leaf set stays fixed, which resume needs: ROADMAP C; ``embed``
+    and ``head`` stay frozen), batch 2 x 288 with the patch embeddings
+    drawn per step as the launcher draws them, one row of the 3 selected
+    and reselected after step 4 (the loss-patience trigger may not fire
+    after the checkpoint in 6 steps; 3 rows so that one never trains and
+    the delta keeps row entries), through ``crash_resume``.  Each
+    checkpoint holds the whole 8.1 GiB of f32 weights, so the leg writes
+    one and reads one (no adapter directory: the tenant is exported in
+    memory with ``delta_from_trainer``, as the loop's exporter does).  The
+    tenant, applied with ``apply_delta``, must give the greedy streams of
+    the merged weights; its row entries must be there, and the swap
+    kernel must launch exactly when the delta has row
+    entries."""
+    import shutil
+    from repro_torch import trainers
+    from repro_torch.adapters import apply_delta, copy_tree, \
+        delta_from_trainer
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.blockllm import BlockLLMConfig
+    from repro_torch.core.selection import SelectorConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import patch_embeds_for
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import Adam
+    from repro_torch.runtime import train_loop
+    cfg = get_config(PIXTRAL_ARCH).replace(num_layers=3)
+    S = cfg.num_patches + PIXTRAL_TEXT
+    params0 = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(7), device="cuda")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=2, seed=7))
+
+    def batch_fn(step):
+        return {**pipe.batch(step),
+                "patch_embeds": patch_embeds_for(cfg, 2, 7, step, "cuda")}
+
+    bcfg = BlockLLMConfig(selector=SelectorConfig(
+        reselect_every=4, always_active_leaves=("final_norm", "vision_proj"),
+        selectable_leaves=("vision_proj",)), fused_update="kernel")
+
+    def handle():
+        core = trainers.make("blockllm+q8", cfg, adam=Adam(lr=1e-3),
+                             bcfg=bcfg, device="cuda")
+        return trainers.TrainerHandle(core, core.init(None,
+                                                      copy_tree(params0)))
+
+    t0 = time.monotonic()
+    resumed, _, launched, secs = crash_resume(
+        torch, ops, handle, batch_fn,
+        train_loop.TrainLoopConfig(ckpt_dir=str(SCRATCH / "ckpt")))
+    q8 = launched["masked_adam_q8"]
+    print(f"crash-resume ({PIXTRAL_ARCH} width, 3 layers, blockllm+q8, "
+          f"vision_proj and final_norm always active, batch 2 x {S}, "
+          f"reselecting every 4 steps; rows "
+          f"{resumed.state.meta['stack_idx']}, masked_adam_q8 launches in "
+          f"the resumed run {q8}): resumed == uninterrupted ({secs:.1f} s "
+          f"with checkpoint I/O)")
+    if not q8:
+        raise AssertionError("pixtral: Q8 Adam did not launch")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    delta = delta_from_trainer(resumed, params0, meta={"adapter_id": "tuned"})
+    row_entries = sum(e.idx is not None for e in delta.entries.values())
+    ops.reset_launches()
+    applied, _ = apply_delta(copy_tree(params0), delta)
+    torch.cuda.synchronize()
+    swaps = ops.LAUNCHES["scatter_swap"]
+    rng = np.random.default_rng(7)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, S)),
+                             device="cuda")
+    patches = patch_embeds_for(cfg, 2, 70, 0, "cuda")
+    got = pixtral_greedy(torch, cfg, applied, tokens, patches, "kernel")[0]
+    want = pixtral_greedy(torch, cfg, resumed.merged_params(), tokens,
+                          patches, "kernel")[0]
+    ok = torch.equal(got, want)
+    print(f"apply the exported tenant ({delta.num_rows()} rows, "
+          f"{delta.nbytes / 2 ** 20:.1f} MiB; {row_entries} row entries of "
+          f"{len(delta.entries)}, vision_proj "
+          f"{'vision_proj' in delta.entries}): scatter_swap launches "
+          f"{swaps}; greedy streams (2 x {PIXTRAL_NEW + 1}, kernel "
+          f"attention) equal to the merged weights': {ok} "
+          f"({time.monotonic() - t0:.1f} s for the leg)")
+    if not ok or not row_entries or bool(swaps) != bool(row_entries):
+        raise AssertionError("pixtral: the applied tenant disagrees, has no "
+                             "row entries, or the swap kernel did not launch "
+                             "with them")
+    del resumed, params0, applied, delta
+    torch.cuda.empty_cache()
+    return swaps, q8
+
+
+def pixtral_decode(torch, np, ops):
+    """(d) Full width and depth (40 layers), bf16 weights, B 8: ``prefill``
+    over [8, 256, 1024] patch embeddings and a 288-token prompt (its
+    first 256 positions the patches), the rows copied into
+    ``init_cache(8, 512)``, then 16 greedy ``decode_step``s with kernel
+    attention.  Gates: 40 decode-attention launches per decode step;
+    streams bitwise a second run.  (The kernel's function at this shape
+    is held in (a), on the model path in f32 in (b); in bf16 at 40 layers
+    the ``full`` path, which rounds the probabilities to bf16 before P V,
+    parts from the kernel's logits by 0.44, PERF.md.)  Then a profile of
+    the decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import patch_embeds_for
+    from repro_torch.models import model as model_lib
+    cfg = get_config(PIXTRAL_ARCH)
+    t0 = time.monotonic()
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(27), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    B, S = 8, cfg.num_patches + PIXTRAL_TEXT
+    tokens = torch.as_tensor(np.random.default_rng(27).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    patches = patch_embeds_for(cfg, B, 27, 0, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    out = pixtral_greedy(torch, cfg, params, tokens, patches, "kernel")[0]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    again = pixtral_greedy(torch, cfg, params, tokens, patches, "kernel")[0]
+    same = torch.equal(out, again)
+    want = cfg.num_layers * PIXTRAL_NEW
+    print(f"pixtral decode ({PIXTRAL_ARCH}, full width and depth, bf16 "
+          f"weights ({init_s:.2f} s to draw on the card), B {B}, prefill "
+          f"over [{B}, {cfg.num_patches}, {cfg.vision_embed_dim}] patch "
+          f"embeddings + {PIXTRAL_TEXT} tokens, init_cache({B}, "
+          f"{PIXTRAL_CONTEXT}), {PIXTRAL_NEW} decode steps): launches "
+          f"{launches} ({cfg.num_layers} x {PIXTRAL_NEW} = {want} expected); "
+          f"{wall:.2f} s wall with prefill; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; streams bitwise a second run: {same}; "
+          f"stream 0 {out[0].tolist()}")
+    fails = []
+    if launches["decode_attention"] != want:
+        fails.append(f"not {cfg.num_layers} decode-attention launches per "
+                     f"decode step")
+    if not same:
+        fails.append("differs from a second run of itself")
+    if fails:
+        raise AssertionError(f"pixtral decode: {fails}")
+    with torch.no_grad():
+        _, pre = model_lib.prefill(params, cfg, {"tokens": tokens,
+                                                 "patch_embeds": patches})
+        cache = cache_from_prefill(torch, cfg, pre, B, PIXTRAL_CONTEXT,
+                                   torch.bfloat16)
+        del pre
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        tok = out[:, :1]
+
+        def step():
+            nonlocal pos, tok
+            lg, _ = model_lib.decode_step(params, cfg, cache, tok, pos,
+                                          attn_impl="kernel")
+            tok = lg.argmax(-1, keepdim=True).cpu().to("cuda")
+            pos = pos + 1
+        _, wall_ms, busy = profile_steps(
+            torch, step, f"dense_{PIXTRAL_ARCH}", f"{PIXTRAL_ARCH}, bf16, "
+            f"B{B}, contexts {S}-{S + 5} of {PIXTRAL_CONTEXT}, kernel "
+            f"attention")
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches, wall_ms, busy, peak
+
+
+def prefill_vs_priming(torch, np, ops):
+    """(e) Whole-sequence prefill on the card: ``recurrentgemma-2b`` at
+    full width and 5 layers (4 RG-LRU blocks and a local attention block)
+    and ``xlstm-1.3b`` at 8 layers (7 mLSTM blocks and an sLSTM block),
+    f32, B 2: ``prefill`` of a 64-token prompt (the scan kernel's
+    launches counted: one per RG-LRU block) against the same prompt
+    primed token by token through ``decode_step`` from a fresh cache.
+    Every cache leaf within ``PREFILL_RTOL`` of the leaf's largest value,
+    the last logits too; then 8 greedy tokens from each cache (kernel
+    attention), equal, or parting only where the primed run's top two
+    logits are within the tolerance.  Returns the scan launches."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    B, S, n_new = 2, 64, 8
+    scans = 0
+    for arch, layers in ((RG_ARCH, 5), (XLSTM_ARCH, 8)):
+        t0 = time.monotonic()
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        params = model_lib.init_params(cfg, generator=torch.Generator(
+            "cuda").manual_seed(27), device="cuda")
+        prompt = torch.as_tensor(np.random.default_rng(27).integers(
+            0, cfg.vocab_size, (B, S)), device="cuda")
+        want_scans = sum(t == "recurrent" for t in cfg.layer_types())
+        ops.reset_launches()
+        with torch.no_grad():
+            last, pre = model_lib.prefill(params, cfg, {"tokens": prompt})
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["rglru_scan"]
+        scans += launched
+        filled = cache_from_prefill(torch, cfg, pre, B, 2 * S,
+                                    torch.float32)
+        del pre
+        primed = model_lib.init_cache(cfg, B, 2 * S, dtype=torch.float32,
+                                      device="cuda")
+        with torch.no_grad():
+            for t in range(S):
+                plast, _ = model_lib.decode_step(
+                    params, cfg, primed, prompt[:, t:t + 1],
+                    torch.full((B,), t, dtype=torch.int32, device="cuda"),
+                    attn_impl="kernel")
+
+        def rel(a, b):
+            return float((a - b).abs().max()
+                         / b.abs().max().clamp(min=1e-30))
+        names, got, _ = _flatten_with_names(filled["stages"])
+        want = _flatten_with_names(primed["stages"])[1]
+        errs = {n: rel(a, b) for n, a, b in zip(names, got, want)}
+        worst = max(errs, key=errs.get)
+        r_last = rel(last, plast)
+
+        def greedy(cache, first):
+            out, tok, logits = [], first.argmax(-1), [first]
+            with torch.no_grad():
+                for i in range(n_new):
+                    out.append(tok)
+                    lg, _ = model_lib.decode_step(
+                        params, cfg, cache, tok[:, None],
+                        torch.full((B,), S + i, dtype=torch.int32,
+                                   device="cuda"), attn_impl="kernel")
+                    tok = lg.argmax(-1)
+                    logits.append(lg)
+            return torch.stack(out, 1), logits
+        a_out, _ = greedy(filled, last)
+        b_out, b_logits = greedy(primed, plast)
+        same = torch.equal(a_out, b_out)
+        tie = None
+        if not same:
+            i = int((a_out != b_out).any(0).nonzero()[0])
+            top = b_logits[i].topk(2, dim=-1).values
+            margin = float((top[:, 0] - top[:, 1]).min())
+            tie = margin <= PREFILL_RTOL * float(b_logits[i].abs().max())
+        ok = (max(errs.values()) <= PREFILL_RTOL and r_last <= PREFILL_RTOL
+              and launched == want_scans and (same or tie))
+        print(f"prefill vs per-token priming ({arch}, full width, {layers} "
+              f"layers, f32, B {B}, {S}-token prompt): rglru_scan launches "
+              f"in the prefill {launched} ({want_scans} RG-LRU blocks); "
+              f"{len(names)} cache leaves, max|prefill-primed| / max|primed| "
+              f"{errs[worst]:.2e} ({worst}), last logits {r_last:.2e} (rtol "
+              f"{PREFILL_RTOL}); {n_new} greedy tokens after each equal: "
+              f"{same}{'' if same else f' (parted at a tie: {tie})'}; "
+              f"{time.monotonic() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{arch}: prefill disagrees with per-token "
+                                 f"priming")
+        del params, filled, primed
+        torch.cuda.empty_cache()
+    return scans
+
+
+def pixtral_family(torch, np, ops, da, results, card):
+    """Phase 27: (a) decode attention at G = 4, head_dim 128, (b) card vs
+    CPU at 2 layers, (c) BlockLLM training at full width and 8 layers,
+    then crash -> resume -> export -> apply at 3 layers, (d) decode at
+    full width and depth and its profile, (e) whole-sequence prefill of
+    the recurrent and xLSTM families against per-token priming."""
+    t0 = time.monotonic()
+    g = torch.Generator("cuda").manual_seed(27)
+    errs = decode_cases(torch, da, DECODE_G4_CASES, g, KV=8)
+    S = 256 + PIXTRAL_TEXT
+    ctx = list(range(S, S + PIXTRAL_NEW, 2))
+    time_decode_attention(torch, da, results, g, G=4, hd=128,
+                          C=PIXTRAL_CONTEXT, pos=ctx,
+                          worst=errs["G4 hd128 bf16"], prefix="g4_")
+    torch.cuda.empty_cache()
+    pixtral_card_vs_cpu(torch, np)
+    t1 = time.monotonic()
+    print(f"phase 27 (a) and (b): {t1 - t0:.1f} s")
+    launches, peak, p50 = pixtral_train(torch, np, ops)
+    t2 = time.monotonic()
+    swaps, q8 = pixtral_crash_resume_apply(torch, np, ops)
+    t3 = time.monotonic()
+    dec, wall_ms, busy, dec_peak = pixtral_decode(torch, np, ops)
+    t4 = time.monotonic()
+    scans = prefill_vs_priming(torch, np, ops)
+    print(f"phase 27 ({PIXTRAL_ARCH} and prefill): kernel and card vs CPU "
+          f"{t1 - t0:.1f} s, training {t2 - t1:.1f} s, crash-resume-export-"
+          f"apply {t3 - t2:.1f} s, decode and profile {t4 - t3:.1f} s, "
+          f"prefill vs priming {time.monotonic() - t4:.1f} s; training "
+          f"({PIXTRAL_TRAIN_LAYERS} layers) peak {peak / 2 ** 30:.2f} GiB, "
+          f"step p50 {p50:.1f} ms; decode peak {dec_peak / 2 ** 30:.2f} "
+          f"GiB, step wall {wall_ms:.2f} ms, busy {busy:.2f} ms, idle "
+          f"{max(0.0, 1 - busy / wall_ms):.1%} ({card})")
+    return launches, swaps, dec, scans
+
+
 def main() -> int:
     try:
         import torch
@@ -4084,11 +4680,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(exist_ok=True)
     t_start = time.monotonic()
+    last = [t_start]
+
+    def stamp(label):
+        """Print the seconds since the last stamp (phases 1-20)."""
+        now = time.monotonic()
+        print(f"{label}: {now - last[0]:.1f} s")
+        last[0] = now
 
     # phase 1: device and build
     card = smi()
     print(f"device: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; "
+          f"{os.cpu_count()} host cores")
+    print(host_yardstick(torch))
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import masked_adam as ma
@@ -4101,6 +4706,7 @@ def main() -> int:
     for name, info in build.BUILD_INFO.items():
         (OUT / f"ptxas_{name}.txt").write_text(info["log"])
         wants = {"decode_attention": ["Li128ELi2E",       # hd 128, G 2
+                                      "Li128ELi4E",       # hd 128, G 4
                                       "Li64ELi3E",        # hd 64, G 3
                                       "Li64ELi1E",        # hd 64, G 1
                                       "Li256ELi10E",      # f32 cache, G 10
@@ -4156,12 +4762,14 @@ def main() -> int:
             if spills:
                 raise AssertionError(f"{name}: {spills[0]} spills")
 
+    stamp("phase 1")
     # phases 2 + 3
     results = {}
     check_decode_attention(torch, da, results)
     check_scatter_swap(torch, sa, results)
     torch.cuda.empty_cache()
 
+    stamp("phases 2 + 3")
     # phase 4: the main path through the launcher a user calls
     from repro_torch.launch import serve
     argv = ["--arch", ARCH, "--reduce", "0", "--attn-impl", "kernel",
@@ -4189,73 +4797,90 @@ def main() -> int:
     serve_long_prompts(torch, np)
     torch.cuda.empty_cache()
 
+    stamp("phase 4")
     # phase 5
     teacher_forced(torch, np)
     torch.cuda.empty_cache()
     profile_decode(torch, np)
     torch.cuda.empty_cache()
 
+    stamp("phase 5")
     # phase 6: the training kernels against their plain versions, times
     check_masked_adam(torch, ma, results)
     time_masked_adam(torch, ops, results)
     reference_small(torch, np)
     torch.cuda.empty_cache()
 
+    stamp("phase 6")
     # phase 7: the training main path through the launcher
     t_launches, q8_peak, q8_report, q8_p50 = train_main_path(torch, np, ops)
 
+    stamp("phase 7")
     # phase 8: the f32 kernel path and the memory comparison via the API
     f32_launches, peaks = train_api(torch, np, ops, q8_peak, q8_report,
                                     q8_p50)
 
+    stamp("phase 8")
     # phase 9: checkpoint -> crash -> resume -> export -> serve, 2 layers
     checkpoint_export_serve(torch, np, ops)
 
+    stamp("phase 9")
     # phase 10: the fused paged kernel against its plain version and the
     # dense kernel, and its times
     check_paged_decode_attention(torch, np, da, results)
     torch.cuda.empty_cache()
 
+    stamp("phase 10")
     # phase 11: the paged main path through the launcher, against dense
     p_launches, p_streams = paged_main_path(torch, np, ops)
 
+    stamp("phase 11")
     # phase 12: a tight page pool, then speculative decoding
     paged_tight_pool(torch, np)
     paged_speculative(torch, np, ops, p_streams)
 
+    stamp("phase 12")
     # phase 13: the paged decode step against the dense one, alternating,
     # and its profile beside the dense one's
     paged_vs_dense_steps(torch, np)
     profile_decode(torch, np, paged=True)
     torch.cuda.empty_cache()
 
+    stamp("phase 13")
     # phase 14: the RG-LRU scan kernel against its plain version, times
     check_rglru_scan(torch, rs, ops, results)
 
+    stamp("phase 14")
     # phase 15: the decode kernel at recurrentgemma-2b's local layers
     check_decode_attention_g10(torch, da, results)
 
+    stamp("phase 15")
     # phase 16: BlockLLM training of recurrentgemma-2b through the launcher
     rg_launches, _ = rg_train(torch, np, ops)
 
+    stamp("phase 16")
     # phase 17: checkpoint -> crash -> resume -> export -> serve, 5 layers
     # (both stage shapes), 2 slots so slots are reused.  Every stack has
     # one row here, so each trained leaf changes in all its rows and the
     # delta holds whole leaves, swapped in without the swap kernel
     checkpoint_export_serve(torch, np, ops, arch=RG_ARCH, layers=5, slots=2)
 
+    stamp("phase 17")
     # phase 18: the flash-attention kernel against its plain version over
     # the sweep, and its times at the two main shapes
     from repro_torch.kernels import flash_attention as fa
     check_flash_attention(torch, fa, results)
 
+    stamp("phase 18")
     # phase 19: the op through autograd (kernel forward, chunked backward)
     # under the kernel profiler; its launches are the path's count
     fa_launches, fa_times = flash_op(torch, fa, ops)
 
+    stamp("phase 19")
     # phase 20: long-context BlockLLM training through the trainer API
     long_ctx = long_context_train(torch, np, ops)
 
+    stamp("phase 20")
     # phase 21: three q8 tenants served without and with the device
     # AdapterCache (streams equal), then the launcher with --cache-bytes
     t0 = time.monotonic()
@@ -4300,34 +4925,48 @@ def main() -> int:
     # -> export -> apply, full-depth decode
     w_train, w_swaps, w_decode = whisper_family(torch, np, ops, da, results,
                                                 card)
-    print(f"phase 26: {time.monotonic() - t5:.1f} s")
+    t6 = time.monotonic()
+    print(f"phase 26: {t6 - t5:.1f} s")
     results["decode_attention"]["g1_launches"] = \
         w_decode["decode_attention"]
+
+    # phase 27: the pixtral VLM: decode attention at G = 4, card vs CPU,
+    # BlockLLM training at 8 layers, crash -> resume -> export -> apply,
+    # full-depth decode; whole-sequence prefill of the recurrent families
+    p_train, p_swaps, p_decode, p_scans = pixtral_family(torch, np, ops, da,
+                                                         results, card)
+    print(f"phase 27: {time.monotonic() - t6:.1f} s")
+    results["decode_attention"]["g4_launches"] = \
+        p_decode["decode_attention"]
+    results["rglru_scan"]["prefill_launches"] = p_scans
 
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path; the swap and the f32 masked Adam add the
-    # xLSTM serving and training runs (phase 25) and the whisper apply
-    # and training runs (phase 26)
+    # xLSTM serving and training runs (phase 25), the whisper apply and
+    # training runs (phase 26) and the pixtral ones (phase 27)
     launches = {"decode_attention": launches["decode_attention"],
                 "scatter_swap": (launches["scatter_swap"]
-                                 + x_serve["scatter_swap"] + w_swaps),
+                                 + x_serve["scatter_swap"] + w_swaps
+                                 + p_swaps),
                 "paged_decode_attention": p_launches["paged_decode_attention"],
                 "masked_adam_q8": t_launches["masked_adam_q8"],
                 "masked_adam": (f32_launches["masked_adam"]
                                 + x_train["masked_adam"]
-                                + w_train["masked_adam"]),
+                                + w_train["masked_adam"]
+                                + p_train["masked_adam"]),
                 "rglru_scan": rg_launches["rglru_scan"],
                 "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
     path_of = {"decode_attention": "serving main path",
                "scatter_swap": f"serving main path, the {XLSTM_ARCH} "
-                               f"serving run and the {WHISPER_ARCH} apply",
+                               f"serving run and the {WHISPER_ARCH} and "
+                               f"{PIXTRAL_ARCH} applies",
                "paged_decode_attention": "paged serving main path",
                "masked_adam_q8": "training main path (blockllm+q8)",
                "masked_adam": f"blockllm f32 run (fused_update='kernel') "
-                              f"and the {XLSTM_ARCH} and {WHISPER_ARCH} "
-                              f"training main paths",
+                              f"and the {XLSTM_ARCH}, {WHISPER_ARCH} and "
+                              f"{PIXTRAL_ARCH} training main paths",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
                              f"and remat recompute)",
                "rglru_scan_bwd": f"{RG_ARCH} training main path "

@@ -22,9 +22,13 @@ ml_dtypes arrays.
 """
 from __future__ import annotations
 
+import io
 import json
+import mmap
 import os
 import shutil
+import zipfile
+import zlib
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -123,15 +127,101 @@ def to_numpy(t) -> Tuple[np.ndarray, str]:
     return arr.view(f"uint{8 * t.element_size()}"), name
 
 
-def from_numpy(arr: np.ndarray, name: Optional[str] = None) -> torch.Tensor:
+def from_numpy(arr: np.ndarray, name: Optional[str] = None, *,
+               copy: bool = True) -> torch.Tensor:
     """Tensor of logical dtype ``name`` (default: the array's own) from a
-    host array, bit-exact; ``arr`` may hold raw uintN bits."""
+    host array, bit-exact; ``arr`` may hold raw uintN bits.  ``copy=False``
+    shares a writable contiguous array's memory (one nothing else holds,
+    such as an array just read from an archive)."""
     name = name or str(arr.dtype)
     arr = np.ascontiguousarray(arr).reshape(arr.shape)   # keeps 0-dim
+    if name not in _NUMPY_NATIVE:
+        arr = arr.view({1: np.uint8, 2: np.int16}[arr.dtype.itemsize])
+    t = torch.from_numpy(arr.copy() if copy else arr)
+    return t if name in _NUMPY_NATIVE else t.view(_DTYPE_OF[name])
+
+
+# a device leaf reaches the file through a host buffer of this many bytes
+_CHUNK = 64 << 20
+
+
+def _stored_dtype(leaf) -> Tuple[str, np.dtype]:
+    """(logical dtype name, numpy dtype of the stored bits) of a leaf."""
+    if isinstance(leaf, np.ndarray):
+        return str(leaf.dtype), leaf.dtype
+    name = dtype_name(leaf.dtype)
     if name in _NUMPY_NATIVE:
-        return torch.from_numpy(arr.copy())
-    bits = {1: np.uint8, 2: np.int16}[arr.dtype.itemsize]
-    return torch.from_numpy(arr.view(bits).copy()).view(_DTYPE_OF[name])
+        return name, np.dtype(name)
+    return name, np.dtype(f"uint{8 * leaf.element_size()}")
+
+
+def _write_npz(path: Path, arrays: Dict[str, Any]) -> None:
+    """``np.savez``'s archive (stored members ``<key>.npy`` in zip64),
+    each array written from its own buffer: ``np.savez`` copies every
+    16 MiB chunk once more on its way to the file.  A leaf on the device
+    goes through one reused host buffer, chunk by chunk, so no host copy
+    of the whole leaf (or tree) is made."""
+    buf = None
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, leaf in arrays.items():
+            _, stored = _stored_dtype(leaf)
+            header = {"descr": np.lib.format.dtype_to_descr(stored),
+                      "fortran_order": False, "shape": tuple(leaf.shape)}
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(f, header)
+                if isinstance(leaf, torch.Tensor) and leaf.device.type != \
+                        "cpu":
+                    flat = leaf.detach().contiguous().reshape(-1).view(
+                        torch.uint8)
+                    if buf is None:
+                        buf = torch.empty(_CHUNK, dtype=torch.uint8,
+                                          pin_memory=True)
+                    for i in range(0, flat.numel(), _CHUNK):
+                        part = flat[i:i + _CHUNK]
+                        buf[:part.numel()].copy_(part)
+                        f.write(buf[:part.numel()].numpy())
+                else:
+                    arr, _ = to_numpy(leaf)
+                    arr = np.ascontiguousarray(arr).reshape(arr.shape)
+                    f.write(arr.reshape(-1).view(np.uint8))
+
+
+def _read_npz(path: Path, keys) -> Dict[str, np.ndarray]:
+    """``{key: array}`` of an archive ``_write_npz`` or ``np.savez``
+    wrote (stored members).  Each array is a view of a private
+    (copy-on-write) mapping of the file, read by the page cache, not
+    copied; every member's CRC-32 is checked, as ``np.load`` checks
+    it."""
+    with zipfile.ZipFile(path) as zf:
+        infos = {zi.filename: zi for zi in zf.infolist()}
+    for zi in infos.values():
+        if zi.compress_type != zipfile.ZIP_STORED:
+            raise ValueError(f"{path}: member {zi.filename!r} is "
+                             f"compressed; payloads store their arrays")
+    with open(path, "rb") as fh:
+        mm = memoryview(mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_COPY))
+    out = {}
+    for key in keys:
+        zi = infos[key + ".npy"]
+        # the local header: 30 bytes, then the name and the extra field
+        at = zi.header_offset
+        name_len, extra_len = np.frombuffer(mm[at + 26:at + 30], "<u2")
+        start = at + 30 + int(name_len) + int(extra_len)
+        body = mm[start:start + zi.file_size]
+        if zlib.crc32(body) != zi.CRC:
+            raise zipfile.BadZipFile(f"Bad CRC-32 for file {zi.filename!r}")
+        head = io.BytesIO(body[:min(len(body), 1 << 17)])
+        version = np.lib.format.read_magic(head)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(head)
+        count = int(np.prod(shape, dtype=np.int64))
+        arr = np.frombuffer(body, dtype=dtype, count=count,
+                            offset=head.tell())
+        out[key] = (arr.reshape(shape[::-1]).T if fortran
+                    else arr.reshape(shape))
+    return out
 
 
 def write_payload(final: Path, named_arrays: Dict[str, Any], *,
@@ -148,14 +238,13 @@ def write_payload(final: Path, named_arrays: Dict[str, Any], *,
     manifest = {"meta": meta or {}, "leaves": []}
     manifest.update(extra or {})
     for i, (name, leaf) in enumerate(named_arrays.items()):
-        arr, dtype = to_numpy(leaf)
+        dtype, stored = _stored_dtype(leaf)
         key = f"a{i}"
-        stored_as = str(arr.dtype)
-        arrays[key] = arr
+        arrays[key] = leaf
         manifest["leaves"].append(
             {"name": name, "key": key, "dtype": dtype,
-             "stored_as": stored_as, "shape": list(arr.shape)})
-    np.savez(tmp / "arrays.npz", **arrays)
+             "stored_as": str(stored), "shape": list(leaf.shape)})
+    _write_npz(tmp / "arrays.npz", arrays)
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     (tmp / "DONE").write_text("ok")
     if final.exists():
@@ -176,10 +265,10 @@ def read_payload(path) -> Tuple[Dict[str, torch.Tensor], dict]:
     bit-exact dtypes, plus the manifest dict."""
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
-    with np.load(path / "arrays.npz") as arrays:
-        out = {}
-        for e in manifest["leaves"]:
-            out[e["name"]] = from_numpy(arrays[e["key"]], e["dtype"])
+    arrays = _read_npz(path / "arrays.npz",
+                       [e["key"] for e in manifest["leaves"]])
+    out = {e["name"]: from_numpy(arrays[e["key"]], e["dtype"], copy=False)
+           for e in manifest["leaves"]}
     return out, manifest
 
 

@@ -32,8 +32,12 @@ SOURCES = {"decode_attention": "decode_attention.cu",
            "masked_adam": "masked_adam.cu",
            "rglru_scan": "rglru_scan.cu",
            "flash_attention": "flash_attention.cu"}
+# -split-compile=0: cicc and ptxas optimise the kernels of one source on
+# every core, which halves the build of the two decode-attention sources
+# (each holds dozens of instantiations)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0", "-Xptxas", "--split-compile=0"]
 
 # one counter per kernel; masked_adam.cu holds two, and rglru_scan.cu its
 # forward and its backward (reversed) kernel

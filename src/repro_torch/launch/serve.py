@@ -36,6 +36,9 @@ device within N bytes (``repro_torch.adapters.AdapterCache``): a flip to
 a cached tenant is a device-to-device row swap; the ``adapter cache:``
 line reports residency, hit rate and host-to-device against
 device-to-device bytes.
+
+``--layers N`` cuts the depth to N layers (0: the config's), as the
+training launcher's option does.
 """
 from __future__ import annotations
 
@@ -161,6 +164,9 @@ def run(argv=None):
     ap.add_argument("--reduce", type=int, default=4,
                     help="scale the arch down by this factor (0 = full "
                          "width)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the "
+                         "config's)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
@@ -203,6 +209,8 @@ def run(argv=None):
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduce_config(cfg, args.reduce)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     if cfg.is_encoder_decoder or cfg.family == "vlm":
         raise SystemExit("serve demo supports LM-family archs")
     gen = torch.Generator(device).manual_seed(args.seed)

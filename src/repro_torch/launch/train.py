@@ -18,7 +18,13 @@ N`` scales the arch down (0 = full width).  Hybrid archs
 kernel, forward and backward.  An encoder-decoder arch (``--arch
 whisper-large-v3``) gets stub frame embeddings ``frames`` [batch,
 encoder_seq_len, encoder_feature_dim] ~ N(0, 1) beside each step's
-tokens (``frames_for``), as the JAX launcher's ``batch_fn`` draws them.
+tokens (``frames_for``), as the JAX launcher's ``batch_fn`` draws them;
+a VLM (``--arch pixtral-12b``) likewise gets stub patch embeddings
+``patch_embeds`` [batch, num_patches, vision_embed_dim] ~ N(0, 1)
+(``patch_embeds_for``), which take the first ``num_patches`` positions
+(so ``--seq`` must be at least that).  ``--layers N`` cuts the depth to
+N layers (0: the config's), for a model whose full depth does not train
+on one card.
 """
 from __future__ import annotations
 
@@ -47,14 +53,35 @@ def make_trainer(cfg, args, params=None, device=None):
     return trainers.TrainerHandle(core, core.init(gen, params))
 
 
-def frames_for(cfg, batch: int, seed: int, step: int, device):
-    """Step ``step``'s stub frame embeddings, drawn on ``device`` from a
-    generator seeded with ``(seed, step)``: a resumed run sees the frames
-    an uninterrupted one saw at the same step."""
+def _step_generator(seed: int, step: int, device):
+    """A generator on ``device`` seeded from ``(seed, step)``: a resumed
+    run draws at a step what an uninterrupted one drew there.  The pair is
+    hashed (``numpy.random.SeedSequence``), so the low 32 bits, all that
+    the CPU generator keeps of a seed, depend on both."""
+    import numpy as np
     import torch
-    gen = torch.Generator(device).manual_seed((seed << 32) + step)
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device).manual_seed(int(mixed[0]) >> 1)
+
+
+def frames_for(cfg, batch: int, seed: int, step: int, device):
+    """Step ``step``'s stub frame embeddings [batch, encoder_seq_len,
+    encoder_feature_dim] ~ N(0, 1), drawn on ``device`` from
+    ``_step_generator(seed, step)``."""
+    import torch
     return torch.randn(batch, cfg.encoder_seq_len, cfg.encoder_feature_dim,
-                       generator=gen, device=device)
+                       generator=_step_generator(seed, step, device),
+                       device=device)
+
+
+def patch_embeds_for(cfg, batch: int, seed: int, step: int, device):
+    """Step ``step``'s stub patch embeddings [batch, num_patches,
+    vision_embed_dim] ~ N(0, 1), drawn as ``frames_for`` draws the
+    frames."""
+    import torch
+    return torch.randn(batch, cfg.num_patches, cfg.vision_embed_dim,
+                       generator=_step_generator(seed, step, device),
+                       device=device)
 
 
 def main(argv=None):
@@ -80,6 +107,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduce", type=int, default=0,
                     help="divide model dims by this factor (CPU runs)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the "
+                         "config's)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -109,6 +139,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduce_config(cfg, args.reduce)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     model_lib.check_supported(cfg)
     trainer = make_trainer(cfg, args, device=device)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
@@ -118,6 +150,9 @@ def main(argv=None):
 
     def batch_fn(step):
         b = pipe.batch(step)
+        if cfg.family == "vlm":
+            b["patch_embeds"] = patch_embeds_for(cfg, args.batch, args.seed,
+                                                 step, device)
         if cfg.is_encoder_decoder:
             b["frames"] = frames_for(cfg, args.batch, args.seed, step,
                                      device)

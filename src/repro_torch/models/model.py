@@ -26,8 +26,9 @@ Serving caches are updated in place (the JAX package donates them):
 the decode step writes row ``pos[b]`` of each slot, and a recurrent
 block's state ``{"h", "conv"}``, only where ``active[b]``, which is
 equivalent to the JAX server's whole-cache blend under its active mask.
-Recurrent blocks take no chunked prefill (their state would advance on
-the padding of shorter prompts): the server primes them token by token.
+Recurrent blocks take no chunked slot prefill (their state would
+advance on the padding of shorter prompts): the server primes them token
+by token.
 
 Paged KV (``init_paged_cache``): global-attention blocks keep pools
 ``[P, page_size, KV, hd]`` addressed through a per-slot page table
@@ -58,8 +59,16 @@ JAX, ``_cross_kv`` reads the frozen ``params["stages"]``, not BlockLLM's
 overlay, so a selected row's ``xattn.wk`` / ``xattn.wv`` get no gradient
 through the overlay (ROADMAP C, "Faults of the reference").
 
-The VLM family is not ported yet (ROADMAP queue A, "Other families")
-and raises ``NotImplementedError``.
+VLM (pixtral, family ``vlm``): ``_embed`` projects the stub patch
+embeddings ``patch_embeds`` [B, P, E] through ``vision_proj`` in the
+compute dtype and puts them in place of the first P token positions
+(multimodal packing); the text backbone is the dense one.  Slot prefill,
+paged KV and speculation are refused, as JAX's predicates refuse them.
+
+Whole-sequence prefill (``forward(mode="prefill")``, ``prefill``) fills
+a cache in ``init_cache``'s layout: each attention block's K/V rows, and
+each recurrent block's final state (RG-LRU ``{"h", "conv"}``, mLSTM
+``{"C", "n", "m"}``, sLSTM ``{"c", "n", "m", "h"}``).
 """
 from __future__ import annotations
 
@@ -97,20 +106,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+FAMILIES = ("dense", "hybrid", "moe", "ssm", "audio", "vlm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architectures the port does not run yet: the dense,
-    hybrid (RG-LRU), MoE, xLSTM (``ssm``) and encoder-decoder (``audio``)
-    families, with every block type and absolute or rotary positions,
-    are ported; VLM is not."""
-    todo = "ROADMAP queue A, \"Other families\""
-    why = None
-    if cfg.family not in ("dense", "hybrid", "moe", "ssm", "audio") or (
-            cfg.num_experts and cfg.family != "moe"):
-        why = f"family {cfg.family!r} ({todo})"
-    elif cfg.vision_embed_dim:
-        why = f"vision frontends ({todo})"
-    if why:
-        raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
+    """Raise for an architecture the port does not run: a family outside
+    ``FAMILIES`` (dense, hybrid RG-LRU, MoE, xLSTM ``ssm``, the ``audio``
+    encoder-decoder and the ``vlm`` patch embeds, with every block type
+    and absolute or rotary positions), or experts outside ``moe``."""
+    if cfg.family not in FAMILIES:
+        why = f"family {cfg.family!r} (the port runs {', '.join(FAMILIES)})"
+    elif cfg.num_experts and cfg.family != "moe":
+        why = f"experts in family {cfg.family!r} (only moe has experts)"
+    else:
+        return
+    raise NotImplementedError(f"{cfg.name}: {why} is not supported")
 
 
 def _cdtype(cfg) -> torch.dtype:
@@ -143,17 +153,20 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     as JAX's ``_block_init``.  An encoder-decoder model's decoder rows
     add ``lnx`` and an MHA ``xattn``, and its ``encoder`` holds the
     ``frontend`` map, the encoder's own stages (their output scales from
-    ``num_encoder_layers``) and its ``final_norm``."""
+    ``num_encoder_layers``) and its ``final_norm``.  A VLM adds
+    ``vision_proj`` [vision_embed_dim, d_model], normal / sqrt(fan_in).
+    The dense leaves are cast to ``dtype`` as they are drawn (the same
+    values as casting the tree at the end, without an f32 copy of it)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(dev).manual_seed(0)
     d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
 
     def normal(shape, std):
-        return torch.randn(shape, generator=gen, device=dev) * std
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     def zeros(*shape):
-        return torch.zeros(shape, device=dev)
+        return torch.zeros(shape, device=dev, dtype=dtype)
 
     def mlp(c, G):
         f = c.d_ff
@@ -204,13 +217,16 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     }
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab_size), 0.02)
+    if cfg.vision_embed_dim:
+        params["vision_proj"] = normal((cfg.vision_embed_dim, d),
+                                       1 / math.sqrt(cfg.vision_embed_dim))
     if cfg.is_encoder_decoder:
         feat = cfg.encoder_feature_dim or d
         params["encoder"] = {
             "frontend": normal((feat, d), 1 / math.sqrt(feat)),
             "stages": stages(_encoder_cfg(cfg)),
             "final_norm": {"scale": zeros(d)}}
-    if dtype != torch.float32:
+    if dtype != torch.float32:   # the family inits' f32 leaves
         params = tree_map(lambda a: a.to(dtype), params)
     return params
 
@@ -540,16 +556,24 @@ def _write_state(cache, new, active):
         dst.copy_(v)
 
 
+def _keep_state(cache, new, mode, active):
+    """A recurrent block's new state: ``prefill`` fills the empty dict
+    ``cache`` with the final state, ``decode`` writes it in place."""
+    if mode == "prefill":
+        cache.update(new)
+    elif new is not None:
+        _write_state(cache, new, active)
+
+
 def _recurrent_block_apply(cfg, params, x, *, mode, cache, active):
     """The Griffin residual block: RG-LRU temporal mixing, then the MLP."""
-    if mode not in ("train", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"{mode} does not support {BLOCK_RECURRENT} "
                          f"blocks")
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     y, new_cache = rglru.block_apply(params["rec"], h, mode=mode,
                                      cache=cache)
-    if new_cache is not None:
-        _write_state(cache, new_cache, active)
+    _keep_state(cache, new_cache, mode, active)
     x = x + y
     h = layers.rms_norm(params["ln2"], x, cfg.norm_eps)
     return x + layers.mlp_apply(params["mlp"], h, cfg.mlp_type)
@@ -557,17 +581,18 @@ def _recurrent_block_apply(cfg, params, x, *, mode, cache, active):
 
 def _xlstm_block_apply(cfg, btype, params, x, *, mode, cache, active):
     """An mLSTM or sLSTM block and its residual (JAX adds no outer norm);
-    decode writes the new state for active slots only."""
-    if mode not in ("train", "decode"):
+    decode writes the new state for active slots only, prefill starts
+    from a fresh state and keeps the final one."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"{mode} does not support {btype} blocks")
+    state = cache if mode == "decode" else None
     if btype == BLOCK_MLSTM:
         y, new_cache = xlstm.mlstm_block_apply(params, x, mode=mode,
-                                               cache=cache)
+                                               cache=state)
     else:
         y, new_cache = xlstm.slstm_block_apply(params, x, cfg, mode=mode,
-                                               cache=cache)
-    if new_cache is not None:
-        _write_state(cache, new_cache, active)
+                                               cache=state)
+    _keep_state(cache, new_cache, mode, active)
     return x + y
 
 
@@ -734,7 +759,7 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                     aux_total = aux_total + aux
         if mode == "prefill":
             caches[si].update({p: {n: torch.stack([c[n] for c in rows])
-                                   for n in ("k", "v")}
+                                   for n in rows[0]}
                                for p, rows in filled.items()})
     return x, aux_total
 
@@ -744,8 +769,13 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg, tokens, *, base_pos=0, pos_b=None):
-    """Token embeddings in the compute dtype; with absolute positions
+def _embed(params, cfg, tokens, *, patch_embeds=None, base_pos=0,
+           pos_b=None):
+    """Token embeddings in the compute dtype; ``patch_embeds`` [B, P, E]
+    (a VLM) projected through ``vision_proj`` in the compute dtype and
+    put in place of the first P positions, JAX's ``concatenate([proj,
+    x[:, P:]])`` (a sequence shorter than P raises: JAX would lengthen
+    it); with absolute positions
     (``rope_theta == 0``) plus the sinusoid of positions ``base_pos ..``
     (or, for a decode step, of each slot's ``pos_b`` [B]), computed in
     f32 and cast to the compute dtype before the add, as in JAX."""
@@ -760,6 +790,13 @@ def _embed(params, cfg, tokens, *, base_pos=0, pos_b=None):
         # gather, then cast: the same values without casting the whole
         # table
         x = emb[tokens].to(_cdtype(cfg))
+    if patch_embeds is not None:
+        P, S = patch_embeds.shape[1], x.shape[1]
+        if S < P:
+            raise ValueError(f"{cfg.name}: {P} patch embeddings do not fit "
+                             f"in {S} positions")
+        proj = patch_embeds.to(x.dtype) @ params["vision_proj"].to(x.dtype)
+        x = torch.cat([proj, x[:, P:]], dim=1)
     if not cfg.rope_theta:
         if pos_b is None:
             S = x.shape[1]
@@ -856,11 +893,12 @@ TRAIN_ATTN_IMPLS = ("full", "chunked")
 
 
 def _hidden(params, cfg, tokens, *, attn_impl, overlay=None, frames=None,
-            mode="train", caches=None):
+            patch_embeds=None, mode="train", caches=None):
     """Final-norm hidden states [B, S, D] of a full-sequence pass, the
     MoE aux loss, and an encoder-decoder model's cross k/v (else None).
     ``frames`` [B, Se, F]: the encoder's input, required by (and only
-    by) an encoder-decoder model."""
+    by) an encoder-decoder model.  ``patch_embeds`` [B, P, E]: a VLM's
+    stub patch embeddings (see ``_embed``)."""
     check_supported(cfg)
     if attn_impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: full-sequence attention "
@@ -868,7 +906,7 @@ def _hidden(params, cfg, tokens, *, attn_impl, overlay=None, frames=None,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, patch_embeds=patch_embeds)
     cross_kv = None
     if cfg.is_encoder_decoder:
         if frames is None:
@@ -882,22 +920,27 @@ def _hidden(params, cfg, tokens, *, attn_impl, overlay=None, frames=None,
         cross_kv
 
 
-def forward(params, cfg: ModelConfig, tokens, *, frames=None, mode="train",
-            overlay=None, attn_impl="chunked"):
+def forward(params, cfg: ModelConfig, tokens, *, frames=None,
+            patch_embeds=None, mode="train", overlay=None,
+            attn_impl="chunked"):
     """Full-sequence teacher-forced logits [B, S, vocab].  ``attn_impl``
     ``chunked`` (the default, as JAX's ``forward``) runs
     ``layers.attention_chunked`` past 2048 tokens, ``full`` always
     ``attention_full``.  ``frames``: an encoder-decoder model's encoder
-    input [B, Se, F].  ``mode="prefill"`` returns ``(logits, cache)``,
-    the cache holding each attention block's K/V rows ([G, B, C, KV, hd]
-    in the compute dtype, C the sequence or a local block's window) and,
-    for an encoder-decoder model, ``cross_kv``."""
+    input [B, Se, F]; ``patch_embeds``: a VLM's [B, P, E].
+    ``mode="prefill"`` returns ``(logits, cache)``, the cache holding
+    each attention block's K/V rows ([G, B, C, KV, hd] in the compute
+    dtype, C the sequence or a local block's window), each recurrent
+    block's final state (``init_cache``'s leaves, the RG-LRU conv state
+    in the compute dtype) and, for an encoder-decoder model,
+    ``cross_kv``."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode is train or prefill, got {mode!r}")
     caches = [{} for _ in cfg.stages()] if mode == "prefill" else None
     hidden, _, cross_kv = _hidden(params, cfg, tokens, overlay=overlay,
                                   attn_impl=attn_impl, frames=frames,
-                                  mode=mode, caches=caches)
+                                  patch_embeds=patch_embeds, mode=mode,
+                                  caches=caches)
     logits = _unembed(params, cfg, hidden)
     if mode == "train":
         return logits
@@ -909,10 +952,13 @@ def forward(params, cfg: ModelConfig, tokens, *, frames=None, mode="train",
 
 def prefill(params, cfg: ModelConfig, batch, *, attn_impl="chunked"):
     """Whole-sequence prefill: ``(logits [B, vocab] at the last position,
-    cache)`` (JAX's ``prefill``; the route to a filled ``cross_kv``)."""
+    cache)`` (JAX's ``prefill``; the route to a filled ``cross_kv`` and,
+    for a VLM, to decoding after the patches).  ``batch``: ``tokens`` and
+    the optional ``frames`` / ``patch_embeds``."""
     logits, cache = forward(params, cfg, batch["tokens"],
-                            frames=batch.get("frames"), mode="prefill",
-                            attn_impl=attn_impl)
+                            frames=batch.get("frames"),
+                            patch_embeds=batch.get("patch_embeds"),
+                            mode="prefill", attn_impl=attn_impl)
     return logits[:, -1], cache
 
 
@@ -964,7 +1010,9 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
             loss_chunk=None, overlay=None):
     """Next-token cross entropy plus the MoE aux loss (zero for other
     families).  Returns ``(loss, metrics)``.  An encoder-decoder model
-    reads its encoder input from ``batch["frames"]``.
+    reads its encoder input from ``batch["frames"]``, a VLM its patch
+    embeddings from ``batch["patch_embeds"]`` (whose positions keep their
+    labels, as JAX's ``_labels_mask`` keeps them).
 
     ``loss_chunk``: None => auto (chunked when S * V > 2**27, as JAX);
     0 => direct.  ``attn_impl``: ``full`` or ``chunked`` (blockwise
@@ -975,7 +1023,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
     if loss_chunk is None:
         loss_chunk = 512 if S * cfg.vocab_size > (1 << 27) else 0
     hidden, aux, _ = _hidden(params, cfg, tokens, overlay=overlay,
-                             attn_impl=attn_impl, frames=batch.get("frames"))
+                             attn_impl=attn_impl, frames=batch.get("frames"),
+                             patch_embeds=batch.get("patch_embeds"))
     if loss_chunk:
         nll_sum = _chunked_xent(params, cfg, hidden, labels, mask,
                                 loss_chunk)

@@ -103,8 +103,11 @@ def block_apply(params, x, *, mode, cache=None):
     """The Griffin recurrent block.  x [B, S, D].  ``mode``: ``decode``
     (one token; ``cache`` = {"h": [B, W] f32, "conv": [B, cw - 1, W]}),
     else a full sequence from a zero state.  Returns ``(y [B, S, D],
-    new_cache)``, ``new_cache`` None for a full sequence; the caller
-    writes it (the model does so in place, for active slots only)."""
+    new_cache)``: in ``decode`` and ``prefill`` mode the state after the
+    last token (``h`` f32 from the scan, ``conv`` the last cw - 1 conv
+    inputs in x's dtype, zero padding included when S < cw - 1), in
+    ``train`` mode None.  The caller writes it (the model does so in
+    place, for active slots only)."""
     y_branch = F.gelu(x @ params["in_y"].to(x.dtype), approximate="tanh")
     xb = x @ params["in_x"].to(x.dtype)
     if mode == "decode":
@@ -114,9 +117,10 @@ def block_apply(params, x, *, mode, cache=None):
         out = out[:, None, :]
         new_cache = {"h": h, "conv": conv_state}
     else:
-        xb, _ = layers.causal_conv1d(params["conv"], xb)
-        out, _ = rglru_scan(params, xb)
-        new_cache = None
+        xb, conv_state = layers.causal_conv1d(params["conv"], xb)
+        out, h = rglru_scan(params, xb)
+        new_cache = {"h": h, "conv": conv_state} if mode == "prefill" \
+            else None
     out = out * y_branch
     return out @ params["out"].to(x.dtype), new_cache
 

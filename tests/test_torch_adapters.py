@@ -6,6 +6,8 @@ revert is bit-exact, the structural fingerprints agree, and registry
 directories written by either package load in the other, payload
 checksum and all.
 """
+import zipfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +150,51 @@ def test_bf16_payload_round_trip(tmp_path):
     assert got["w"].dtype == torch.bfloat16
     assert torch.equal(got["w"].view(torch.int16), named["w"].view(torch.int16))
     assert torch.equal(got["i"], named["i"])
+
+
+def test_payload_archive_matches_np_savez(tmp_path):
+    """``write_payload`` writes each array from its own buffer: every
+    member of its archive holds the bytes ``np.savez`` writes (0-d,
+    empty, transposed, bool, bfloat16 and float8 leaves among them), and
+    ``read_payload`` gives each leaf back bit-exact."""
+    named = {"f": torch.randn(3, 4), "t": torch.randn(4, 3).T,
+             "z": torch.tensor(3.5), "e": torch.zeros(0, 3),
+             "i": torch.arange(6, dtype=torch.int32).reshape(2, 3),
+             "b": torch.tensor([True, False]),
+             "h": torch.randn(5, 7).bfloat16(),
+             "q": torch.randn(4).to(torch.float8_e4m3fn)}
+    tckpt.write_payload(tmp_path / "p", named)
+    np.savez(tmp_path / "ref.npz", **{f"a{i}": tckpt.to_numpy(v)[0]
+                                      for i, v in enumerate(named.values())})
+    with zipfile.ZipFile(tmp_path / "p" / "arrays.npz") as got, \
+            zipfile.ZipFile(tmp_path / "ref.npz") as want:
+        assert got.namelist() == want.namelist()
+        for name in want.namelist():
+            assert got.read(name) == want.read(name), name
+    back, _ = tckpt.read_payload(tmp_path / "p")
+    for k, v in named.items():
+        assert back[k].dtype == v.dtype and back[k].shape == v.shape, k
+        assert torch.equal(back[k].reshape(-1).view(torch.uint8),
+                           v.contiguous().reshape(-1).view(torch.uint8)), k
+
+
+@pytest.mark.parametrize("fault", ["flipped byte", "compressed member"])
+def test_read_payload_refuses_a_damaged_archive(tmp_path, fault):
+    """``read_payload`` maps the archive instead of going through
+    ``np.load``, and still refuses what ``np.load`` would not give back
+    as written: a member whose bytes no longer match its CRC-32, and a
+    compressed member (payloads store their arrays)."""
+    x = torch.arange(64, dtype=torch.float32)
+    tckpt.write_payload(tmp_path / "p", {"x": x})
+    npz = tmp_path / "p" / "arrays.npz"
+    if fault == "flipped byte":
+        raw = bytearray(npz.read_bytes())
+        at = raw.index(x.numpy().tobytes())
+        raw[at + 5] ^= 0xFF
+        npz.write_bytes(bytes(raw))
+        with pytest.raises(zipfile.BadZipFile, match="CRC"):
+            tckpt.read_payload(tmp_path / "p")
+    else:
+        np.savez_compressed(npz, a0=x.numpy())
+        with pytest.raises(ValueError, match="compressed"):
+            tckpt.read_payload(tmp_path / "p")

@@ -19,7 +19,7 @@ import torch
 
 from repro.checkpoint.checkpointer import _flatten_with_names as jflat
 from repro.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
-                                ModelConfig)
+                                BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig)
 from repro.configs.base import get_config as jget_config
 from repro.launch.train import reduce_config as jreduce_config
 from repro.models import model as jmodel
@@ -148,27 +148,91 @@ def test_forward_logits_match_jax(tiny_cfg):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
-@pytest.mark.parametrize("arch", ["tiny", "local-ring"])
+def _prefill_cfg(tiny_cfg, arch):
+    """The architecture and prompt length of a prefill case."""
+    if arch == "tiny":
+        return tiny_cfg.replace(dtype="float32"), 16
+    if arch == "local-ring":
+        return _local_cfg(), 16
+    if arch.startswith("hybrid"):       # RG-LRU, RG-LRU, local attention
+        cfg = jreduce_config(jget_config("recurrentgemma-2b"), 8).replace(
+            num_layers=3, dtype="float32")
+        # "hybrid-short": fewer tokens than the conv's W - 1 = 3 inputs,
+        # so the conv state keeps zero padding
+        return cfg, (2 if arch == "hybrid-short" else 16)
+    cfg = jget_config("xlstm-1.3b").replace(      # an mLSTM and an sLSTM
+        num_layers=2, pattern=(BLOCK_MLSTM, BLOCK_SLSTM), d_model=64,
+        num_heads=2, num_kv_heads=2, vocab_size=256, dtype="float32",
+        remat=False)
+    return cfg, 16
+
+
+def _cache_pairs(cache, jcache):
+    """``(name, port leaf, JAX leaf)`` of every stage cache leaf: by name,
+    except an xLSTM state, which JAX keeps as a tuple in the order the
+    port's dict has (``xlstm.MLSTM_FRESH`` / ``SLSTM_FRESH``)."""
+    out = []
+    for si, st in enumerate(cache["stages"]):
+        for pos, blk in st.items():
+            jb = jcache["stages"][si][pos]
+            for i, (n, a) in enumerate(blk.items()):
+                out.append((f"{si}/{pos}/{n}", a,
+                            jb[i] if isinstance(jb, (tuple, list)) else jb[n]))
+    assert len(out) == len(jax.tree.leaves(jcache["stages"]))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["tiny", "local-ring", "hybrid",
+                                  "hybrid-short", "xlstm"])
 def test_whole_sequence_prefill_matches_jax(tiny_cfg, arch):
     """``prefill`` (``forward(mode="prefill")``): the last position's
-    logits and every block's K/V rows against JAX's ``prefill``; a local
-    block keeps its window's rows in the ring layout decode writes (16
-    tokens over a window of 8)."""
-    jcfg = (tiny_cfg.replace(dtype="float32") if arch == "tiny"
-            else _local_cfg())
+    logits and every block's cache leaves against JAX's ``prefill``: an
+    attention block's K/V rows (a local block keeps its window's rows in
+    the ring layout decode writes: 16 tokens over a window of 8), an
+    RG-LRU block's final ``h`` (the scan, the B7 kernel on the card) and
+    conv state (the last W - 1 inputs; at 2 tokens they include the zero
+    padding), an mLSTM's and an sLSTM's final states.  Then 4 decode
+    steps from ``init_cache`` with the prefill cache copied in, against
+    JAX's from its own: logits and, at the end, every cache leaf."""
+    jcfg, S = _prefill_cfg(tiny_cfg, arch)
+    cfg = _port_cfg(jcfg)
     jparams = _jax_params(jcfg)
-    toks = np.random.RandomState(4).randint(0, 128, (2, 16)).astype(np.int32)
+    params = _to_port(jparams)
+    rng = np.random.RandomState(4)
+    toks = rng.randint(0, jcfg.vocab_size, (2, S)).astype(np.int32)
+    fed = rng.randint(0, jcfg.vocab_size, (4, 2, 1)).astype(np.int32)
     jlast, jcache = jax.jit(lambda p, t: jmodel.prefill(
         p, jcfg, {"tokens": t}))(jparams, jnp.asarray(toks))
     with torch.no_grad():
-        last, cache = tmodel.prefill(_to_port(jparams), _port_cfg(jcfg),
+        last, cache = tmodel.prefill(params, cfg,
                                      {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(last.numpy(), np.asarray(jlast), **F32_TOL)
-    names, leaves, _ = _flatten_with_names(cache)
-    jnames, jleaves, _ = jflat(jcache)
-    assert names == jnames
-    for n, a, b in zip(names, leaves, jleaves):
+    for n, a, b in _cache_pairs(cache, jcache):
         assert tuple(a.shape) == tuple(b.shape), n
+        assert str(a.dtype)[6:] == str(np.asarray(b).dtype), n
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=n,
+                                   **F32_TOL)
+    # decode on from the prefill: its leaves copied into init_cache's
+    # (an attention block's rows into the first S rows)
+    jdec = jax.tree.map(
+        lambda a, b: b if a.shape == b.shape else a.at[:, :, :S].set(b),
+        jmodel.init_cache(jcfg, 2, MAX_SEQ, dtype=jnp.float32), jcache)
+    dec = tmodel.init_cache(cfg, 2, MAX_SEQ, dtype=torch.float32,
+                            device="cpu")
+    for (n, a, _), (_, b, _) in zip(_cache_pairs(dec, jdec),
+                                    _cache_pairs(cache, jcache)):
+        a[:, :, :b.shape[2]] = b
+    step = jax.jit(lambda p, c, t, pos: jmodel.decode_step(p, jcfg, c, t,
+                                                           pos))
+    for t, tok in enumerate(fed):
+        pos = np.full(2, S + t, np.int32)
+        jlg, jdec = step(jparams, jdec, jnp.asarray(tok), jnp.asarray(pos))
+        with torch.no_grad():
+            lg, _ = tmodel.decode_step(params, cfg, dec,
+                                       torch.from_numpy(tok).long(), pos)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **F32_TOL,
+                                   err_msg=f"decode step {t}")
+    for n, a, b in _cache_pairs(dec, jdec):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=n,
                                    **F32_TOL)
 
@@ -237,10 +301,19 @@ def test_inactive_slot_cache_rows_stay_bit_exact(tiny_cfg):
 
 
 def test_unported_families_raise():
-    for arch in ("pixtral-12b",):
-        cfg = tconfigs.reduce_config(tconfigs.get_config(arch), 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What the port still refuses: a family it does not know, and
+    experts outside the MoE family; every family of the zoo inits."""
+    base = tconfigs.reduce_config(tconfigs.get_config("internlm2-1.8b"), 8)
+    for cfg, why in ((base.replace(family="diffusion"), "diffusion"),
+                     (base.replace(num_experts=4, num_experts_per_tok=2,
+                                   moe_d_ff=32), "experts")):
+        with pytest.raises(NotImplementedError, match=why):
             tmodel.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=why):
+            tmodel.init_cache(cfg, 1, 8, device="cpu")
+    for arch in ("pixtral-12b", "whisper-large-v3", "xlstm-1.3b",
+                 "granite-moe-3b-a800m", "recurrentgemma-2b"):
+        tmodel.check_supported(tconfigs.get_config(arch))
 
 
 def test_whisper_init_and_forward():

@@ -190,6 +190,34 @@ def test_launcher_quick_on_cpu(capsys, tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_launcher_layers_cuts_the_depth(capsys):
+    """``--layers N`` serves the config cut to N layers: the server's
+    config and stacks have N rows, and its streams equal a server built
+    over the cut config's weights from the same seed."""
+    from repro_torch.checkpoint import checkpointer as tckpt
+    argv = ["--device", "cpu", "--arch", "internlm2-1.8b", "--reduce", "8",
+            "--layers", "1", "--requests", "3", "--new-tokens", "3",
+            "--slots", "4", "--max-seq", "64"]
+    srv, reqs = tserve.run(argv)
+    assert "served 3 requests" in capsys.readouterr().out
+    cfg = tconfigs.reduce_config(tconfigs.get_config("internlm2-1.8b"),
+                                 8).replace(num_layers=1)
+    assert srv.cfg.num_layers == 1
+    assert all(a.shape[0] == 1 for a in tckpt._flatten_with_names(
+        srv.params["stages"])[1])
+    params = tmodel.init_params(
+        cfg, generator=torch.Generator("cpu").manual_seed(0), device="cpu")
+    ref = DecodeServer(cfg, params, ServeConfig(batch_slots=4, max_seq=64),
+                       device="cpu")
+    want = [Request(rid=r.rid, prompt=np.asarray(r.prompt),
+                    max_new_tokens=3) for r in reqs]
+    for r in want:
+        ref.submit(r)
+    ref.run_until_drained()
+    assert [r.out for r in reqs] == [r.out for r in want]
+    assert all(len(r.out) == 3 for r in reqs)
+
+
 def test_port_imports_neither_jax_nor_repro():
     """Importing every module of the port (and chip_smoke.py) in a fresh
     interpreter pulls in neither ``jax`` nor any ``repro.`` module; the
