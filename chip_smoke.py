@@ -276,6 +276,33 @@ What it does, failing (non-zero exit, no result line) on any error:
    launched once per RG-LRU block) and ``xlstm-1.3b`` at 8 layers, f32,
    against the same prompt primed token by token: every cache leaf within
    rtol 1e-4 of its largest value, and the greedy tokens after each;
+28. the rest of the zoo (the port's slice 15): ``gemma3-1b`` (26 layers
+   of 5 local : 1 global attention, a 512-token window, MQA 4 / 1 at
+   head_dim 256, a tied 262144-row vocabulary), ``gemma-2b`` (18 layers,
+   MQA 8 / 1 at head_dim 256, a tied 256000-row vocabulary) and
+   ``deepseek-7b`` (30 layers, MHA 32 x 128, vocab 102400): the dense
+   decode kernel at G = 4, head_dim 256 over a 512-row ring and a global
+   cache, G = 8 at head_dim 256 and G = 1 at head_dim 128 with 32 kv
+   heads, and the paged kernel at G = 4 and 8, head_dim 256, against
+   their plain versions (phases 2 and 10's checks) and timed beside the
+   bound, the plain version and SDPA (gather + SDPA paged); then per
+   architecture (a) at full width in f32 (``gemma3-1b`` at 6 layers,
+   the others at 2), ``forward`` logits, ``loss_fn``'s gradient of the
+   head (the tied ``embed``), chunked slot prefill of two prompts
+   (``gemma3-1b``: 600 and 563 tokens, so the rings wrap) and 8
+   teacher-forced ``decode_step``s, kernel attention on the card and
+   plain on the CPU, within rtol 1e-4 of the largest CPU value; (b)
+   ``python -m repro_torch.launch.train --arch <arch> --reduce 0
+   --optimizer blockllm --batch 8 --seq 256 --steps 8`` (phase 16's loss
+   gates, masked-Adam launches from the selections, the peak under 70
+   GiB; ``deepseek-7b`` at 16 of 30 layers, the deepest cut that stays
+   clear of that peak); (c) ``DecodeServer`` at full width and depth,
+   bf16 cache, dense and paged with streams bitwise equal (``gemma3-1b``:
+   520-720-token prompts, the local rings dense beside the global page
+   pools, prefix sharing off; ``gemma-2b``: a tenant, prefix hits, and
+   ``--speculate 4`` equal to plain decoding; ``deepseek-7b``: dense,
+   bitwise a second run), one decode launch per layer per decode pass,
+   and the decode step's wall and busy ms under the profiler;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -427,6 +454,38 @@ DECODE_G4_CASES = (
     ("G4 hd128 f32 q", 4, 128, PIXTRAL_CONTEXT, 0, False, 0.0, "f32",
      "bf16"),
 )
+# phase 28: the rest of the zoo (slice 15)
+ZOO_ARCHS = ("gemma3-1b", "gemma-2b", "deepseek-7b")
+ZOO_RTOL = 1e-4            # card vs CPU, f32: relative to the largest value
+ZOO_CPU_LAYERS = {"gemma3-1b": 6, "gemma-2b": 2, "deepseek-7b": 2}
+GEMMA3_WINDOW = 512        # gemma3-1b's local window (its config)
+GEMMA3_PROMPT = 600        # (a): past the window, so the rings wrap
+ZOO_PROMPT = 96            # (a): gemma-2b and deepseek-7b (no window)
+ZOO_FED = 8                # (a): teacher-forced decode steps
+ZOO_NEW = 16               # (c): new tokens a request
+# deepseek-7b trains at the deepest cut whose BlockLLM peak stays under
+# 70 GiB with room to spare (3.1 GiB of f32 embedding and head, 0.75 GiB
+# a layer): 16 layers peak at 62.62 GiB; 17 select a fifth row (a quarter
+# of the stack, rounded up) and peaked at 69.18 GiB alone and 69.56 after
+# the earlier phases, 18 at 69.94 (scripts/zoo_probe.py, PERF.md)
+ZOO_TRAIN_LAYERS = {"deepseek-7b": 16}
+ZOO_PEAK_GIB = 70.0
+# the decode shapes: gemma3-1b's MQA 4 / 1 at hd 256 (its 512-row ring and
+# its global layers), gemma-2b's 8 / 1 at hd 256, deepseek-7b's MHA 32 x 128
+DECODE_GEMMA_CASES = (
+    ("G4 hd256 ring 512 bf16", 4, 256, GEMMA3_WINDOW, GEMMA3_WINDOW, True,
+     0.0, "bf16", "bf16"),
+    ("G4 hd256 ring 512 f32 q", 4, 256, GEMMA3_WINDOW, GEMMA3_WINDOW, True,
+     0.0, "f32", "bf16"),
+    ("G4 hd256 bf16", 4, 256, 1024, 0, False, 0.0, "bf16", "bf16"),
+    ("G4 hd256 f32 q", 4, 256, 1024, 0, False, 0.0, "f32", "bf16"),
+    ("G8 hd256 bf16", 8, 256, 1024, 0, False, 0.0, "bf16", "bf16"),
+    ("G8 hd256 f32 q", 8, 256, 1024, 0, False, 0.0, "f32", "bf16"),
+)
+DECODE_DEEPSEEK_CASES = (
+    ("G1 hd128 KV32 bf16", 1, 128, 1024, 0, False, 0.0, "bf16", "bf16"),
+    ("G1 hd128 KV32 f32 q", 1, 128, 1024, 0, False, 0.0, "f32", "bf16"),
+)
 
 
 def smi() -> str:
@@ -559,15 +618,20 @@ def profile_records(torch, fn, calls: int = 20):
     """({kernel: (launches per call, device us per launch)}, sessions
     run) of ``fn(i)`` over ``calls`` warm calls under ``torch.profiler``.
     The tracer can lose the records of kernels launched from the port's
-    libraries (all of a session's, once in some runs): a session that
-    recorded no device kernel is run again, up to 3 sessions."""
+    libraries (all of a session's, once in some runs, and every one of
+    three device-only sessions late in a run): a session that recorded
+    no device kernel is run again, up to 3 device-only sessions and then
+    3 that trace the host too (as the step profiles, which have not lost
+    their records)."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
     rec = {}                 # by kernel name, template arguments dropped
-    for session in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    device = [ProfilerActivity.CUDA]
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for session, acts in enumerate([device] * 3 + [both] * 3):
+        with profile(activities=acts) as prof:
             for i in range(calls):
                 fn(i)
             torch.cuda.synchronize()
@@ -684,10 +748,11 @@ def decode_cases(torch, da, cases, g, KV=8):
 
 
 def time_decode_attention(torch, da, results, g, *, G, hd, C, pos, worst,
-                          prefix="", KV=8):
+                          prefix="", KV=8, window=0, ring=False):
     """Device times of the dense kernel (B 8, ``KV`` kv heads, bf16) at
-    contexts ``pos`` of a ``C``-row cache beside its plain version, SDPA
-    and the bound; one launch per call; bitwise over launches and graph
+    contexts ``pos`` of a ``C``-row cache (``ring``: a ring buffer of the
+    last ``window`` = ``C`` positions) beside its plain version, SDPA and
+    the bound; one launch per call; bitwise over launches and graph
     replays.  The numbers go into ``results["decode_attention"]`` under
     ``prefix``.  Returns q and the ring of cache copies."""
     dev, B = "cuda", 8
@@ -698,14 +763,15 @@ def time_decode_attention(torch, da, results, g, *, G, hd, C, pos, worst,
     vs = [torch.randn(B, C, KV, hd, generator=g, device=dev).bfloat16()
           for _ in range(copies)]
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-    valid = torch.arange(C, device=dev)[None, :] <= pos_t[:, None].long()
-    mask = valid[:, None, None, :]
+    from repro_torch.models.layers import decode_valid
+    mask = decode_valid(pos_t, C, window=window, ring=ring)[:, None, None, :]
     qt = q.transpose(1, 2)
+    kw = dict(window=window, ring=ring)
     fns = {
         "kernel": lambda i: da.decode_attention_cuda(
-            q, ks[i % copies], vs[i % copies], pos_t),
+            q, ks[i % copies], vs[i % copies], pos_t, **kw),
         "plain": lambda i: da.decode_attention_plain(
-            q, ks[i % copies], vs[i % copies], pos_t),
+            q, ks[i % copies], vs[i % copies], pos_t, **kw),
         "sdpa": lambda i: torch.nn.functional.scaled_dot_product_attention(
             qt, ks[i % copies].transpose(1, 2),
             vs[i % copies].transpose(1, 2), attn_mask=mask,
@@ -714,17 +780,19 @@ def time_decode_attention(torch, da, results, g, *, G, hd, C, pos, worst,
     # launch overhead included), each in turns
     dev_ms = {k: graph_time_ms(f) for k, f in fns.items()}
     eager_ms = {k: cuda_time_ms(f, 50) for k, f in fns.items()}
-    # bound: q read, each slot's K/V rows lo*bk..pos read once, o written
-    lo, _ = da.block_bounds(pos_t.cpu(), seq_len=C)
-    rows = sum(int(p) + 1 - int(l) * 128 for p, l in zip(pos, lo))
+    # bound: q read, each slot's K/V rows lo*bk..pos read once (a ring:
+    # its min(pos + 1, C) live rows), o written
+    lo, _ = da.block_bounds(pos_t.cpu(), seq_len=C, **kw)
+    rows = sum(min(int(p) + 1, C) - int(l) * 128 for p, l in zip(pos, lo))
     nbytes = 2 * q.nbytes + rows * KV * hd * 2 * 2
     flops = rows * KV * G * hd * 4               # QK and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
-    one_launch_profile(torch, "decode_attention", f"G{G} hd{hd} C{C} pos "
-                       f"{pos}", fns["kernel"])
+    shape = f"G{G} hd{hd} C{C}{' ring' if ring else ''}"
+    one_launch_profile(torch, "decode_attention", f"{shape} pos {pos}",
+                       fns["kernel"])
     same = replay_bitwise(torch, lambda: fns["kernel"](0), fns["kernel"](0))
-    print(f"decode_attention [G{G} hd{hd} bf16] 3 back-to-back launches "
+    print(f"decode_attention [{shape} bf16] 3 back-to-back launches "
           f"and 20 graph replays bitwise the first: {same}")
     if not same:
         raise AssertionError("decode_attention varies across launches")
@@ -733,7 +801,7 @@ def time_decode_attention(torch, da, results, g, *, G, hd, C, pos, worst,
         prefix + "plain_ms": dev_ms["plain"], prefix + "bound_ms": bound,
         prefix + "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         prefix + "library_ms": dev_ms["sdpa"]})
-    print(f"decode_attention time B{B} C{C} KV{KV} G{G} hd{hd} bf16, pos "
+    print(f"decode_attention time B{B} KV{KV} {shape} bf16, pos "
           f"{pos}: device (graph replay) kernel {dev_ms['kernel']:.4f} ms, "
           f"plain {dev_ms['plain']:.4f} ms, sdpa {dev_ms['sdpa']:.4f} ms; "
           f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
@@ -881,13 +949,24 @@ PAGED_G3_CASES = (
     ("G3 hd64 f32 q", 3, 64, "f32", "bf16", 0, 0.0),
     ("G3 hd64 f32 pools", 3, 64, "f32", "f32", 0, 0.0),
 )
+# phase 28: gemma3-1b's and gemma-2b's global layers (MQA at hd 256)
+PAGED_GEMMA_CASES = (
+    ("G4 hd256 bf16", 4, 256, "bf16", "bf16", 0, 0.0),
+    ("G4 hd256 f32 q", 4, 256, "f32", "bf16", 0, 0.0),
+    ("G8 hd256 bf16", 8, 256, "bf16", "bf16", 0, 0.0),
+    ("G8 hd256 f32 q", 8, 256, "f32", "bf16", 0, 0.0),
+)
 
 
-def paged_cases(torch, np, da, cases, seed):
-    """The fused paged kernel on each of ``cases`` against its plain
-    version (o within the dense kernel's tolerance, pools bitwise outside
-    the null page 0) and against the dense kernel on the gathered view at
-    equal block_k (bitwise).  Returns each case's max |kernel - plain|."""
+def paged_cases(torch, np, da, cases, seed, KV=8, near_zero_atol=0.0):
+    """The fused paged kernel on each of ``cases`` (``KV`` kv heads)
+    against its plain version (o within the dense kernel's tolerance,
+    pools bitwise outside the null page 0) and against the dense kernel
+    on the gathered view at equal block_k (bitwise).  A bf16 output is
+    held to one bf16 ulp of the plain output, plus ``near_zero_atol``
+    where it is given (the flash check's bound: each rounds its own f32
+    result once, and near zero an ulp is below the two f32 sums'
+    difference).  Returns each case's max |kernel - plain|."""
     f32, dt = torch.float32, dtypes(torch)
     # pos: first / last row of a page (16, 31, 47, 64, 1023), long and
     # short contexts; slots 3 and 7 inactive; 2, 6, 7 share prefix pages
@@ -897,7 +976,7 @@ def paged_cases(torch, np, da, cases, seed):
     for i, (name, G, hd, qs, ps, window, softcap) in enumerate(cases):
         qd, pd = dt[qs], dt[ps]
         x = paged_state(torch, np, G=G, hd=hd, qd=qd, pd=pd, pos=pos,
-                        act=act, shared=(2, 6, 7), seed=seed + i)
+                        act=act, shared=(2, 6, 7), seed=seed + i, KV=KV)
         kw = dict(window=window, softcap=softcap)
         kk, kv = x["kp"].clone(), x["vp"].clone()
         pk, pv = x["kp"].clone(), x["vp"].clone()
@@ -916,6 +995,11 @@ def paged_cases(torch, np, da, cases, seed):
             ok_o = bool((err <= ATTN_F32_ATOL
                          + ATTN_F32_RTOL * r.float().abs()).all())
             tol_s = f"rtol {ATTN_F32_RTOL} atol {ATTN_F32_ATOL}"
+        elif near_zero_atol:
+            ok_o = bool((err <= bf16_ulp(torch, r.float()).float()
+                         + near_zero_atol).all())
+            tol_s = (f"1 bf16 ulp + {near_zero_atol:g}; "
+                     f"{bf16_ulps(torch, o, r)} ulps apart at most")
         else:
             ok_o = bf16_ulps(torch, o, r) <= 1
             tol_s = "1 bf16 ulp"
@@ -923,7 +1007,7 @@ def paged_cases(torch, np, da, cases, seed):
                     and not torch.equal(kk[1:], x["kp"][1:]))
         ok_dense = torch.equal(o, od)
         ok = ok_o and ok_pools and ok_dense and bool(torch.isfinite(o).all())
-        print(f"paged_decode_attention [{name}] B8 KV8 G{G} hd{hd} ps "
+        print(f"paged_decode_attention [{name}] B8 KV{KV} G{G} hd{hd} ps "
               f"{PAGED_PS} q {str(qd)[6:]} pools {str(pd)[6:]}, shuffled "
               f"table, shared prefix pages, 2 inactive: max|kernel-plain| "
               f"{err.max().item():.3g} ({tol_s}), pools bitwise outside "
@@ -946,17 +1030,17 @@ def check_paged_decode_attention(torch, np, da, results):
 
 
 def time_paged_decode_attention(torch, np, da, results, worst, *, G, hd,
-                                seed, prefix=""):
-    """Device times (B 8, KV 8, ps 16, contexts 200-900 drawn from
+                                seed, prefix="", KV=8):
+    """Device times (B 8, ``KV`` kv heads, ps 16, contexts 200-900 drawn from
     ``seed``, bf16): the paged kernel, the dense kernel at the same
     contexts, the plain version, and gather + SDPA (several calls: no
     one PyTorch call computes the fused function).  The numbers go into
     ``results["paged_decode_attention"]`` under ``prefix``."""
-    B, KV, ps, NP = 8, 8, PAGED_PS, PAGED_NP
+    B, ps, NP = 8, PAGED_PS, PAGED_NP
     ctx = [int(c) for c in np.random.default_rng(seed).integers(200, 901, B)]
     x = paged_state(torch, np, G=G, hd=hd, qd=torch.bfloat16,
                     pd=torch.bfloat16, pos=ctx, act=[True] * B, shared=(),
-                    seed=seed)
+                    seed=seed, KV=KV)
     copies = 8                         # > L2 between launches
     kps = [x["kp"]] + [x["kp"].clone() for _ in range(copies - 1)]
     vps = [x["vp"]] + [x["vp"].clone() for _ in range(copies - 1)]
@@ -4660,6 +4744,365 @@ def pixtral_family(torch, np, ops, da, results, card):
     return launches, swaps, dec, scans
 
 
+# --------------------------------------------------------------------- #
+# phase 28: the rest of the zoo (slice 15)
+# --------------------------------------------------------------------- #
+
+
+def zoo_kernels(torch, np, da, results):
+    """(a') The decode kernels at the new model shapes against their plain
+    versions (phase 2's and phase 10's checks), then each shape's time
+    beside the bound, the plain version and SDPA (gather + SDPA for the
+    paged kernel)."""
+    g = torch.Generator("cuda").manual_seed(28)
+    errs = decode_cases(torch, da, DECODE_GEMMA_CASES, g, KV=1)
+    errs.update(decode_cases(torch, da, DECODE_DEEPSEEK_CASES, g, KV=32))
+    # gemma3-1b's local layers: a 512-row ring, every slot past the wrap
+    ring_pos = [600, 700, 800, 900, 1000, 1100, 1300, 1500]
+    ctx = [int(c) for c in np.random.default_rng(28).integers(200, 901, 8)]
+    for prefix, G, hd, C, pos, KV, window, case in (
+            ("g4hd256ring_", 4, 256, GEMMA3_WINDOW, ring_pos, 1,
+             GEMMA3_WINDOW, "G4 hd256 ring 512 bf16"),
+            ("g4hd256_", 4, 256, 1024, ctx, 1, 0, "G4 hd256 bf16"),
+            ("g8hd256_", 8, 256, 1024, ctx, 1, 0, "G8 hd256 bf16"),
+            ("g1hd128kv32_", 1, 128, 1024, ctx, 32, 0,
+             "G1 hd128 KV32 bf16")):
+        time_decode_attention(torch, da, results, g, G=G, hd=hd, C=C,
+                              pos=pos, worst=errs[case], prefix=prefix,
+                              KV=KV, window=window, ring=bool(window))
+        torch.cuda.empty_cache()
+    # at G = 8, hd 256 an output element can cancel to within 1e-7 of
+    # zero: the bf16 outputs are held as the flash kernel's are
+    perrs = paged_cases(torch, np, da, PAGED_GEMMA_CASES, seed=280, KV=1,
+                        near_zero_atol=FLASH_F32_ATOL)
+    for prefix, G in (("g4hd256_", 4), ("g8hd256_", 8)):
+        time_paged_decode_attention(torch, np, da, results,
+                                    perrs[f"G{G} hd256 bf16"], G=G, hd=256,
+                                    seed=28 + G, prefix=prefix, KV=1)
+
+
+def zoo_card_vs_cpu(torch, np, arch):
+    """(a) Full width and ``ZOO_CPU_LAYERS`` layers in f32 (``gemma3-1b``:
+    5 local blocks and a global one): ``forward(mode="train")``'s logits
+    at B 1, ``loss_fn`` with its gradient with respect to the head
+    (``embed`` where it is tied), chunked slot prefill of 2 slots
+    (``gemma3-1b``: 600- and 563-token prompts, so the 512-row local rings
+    wrap while they are primed) and ``ZOO_FED`` teacher-forced
+    ``decode_step``s past them (kernel attention on the card, plain on
+    the CPU), on the card against the port's CPU run on the same weights:
+    each within ``ZOO_RTOL`` of the largest CPU value, and one
+    decode-attention launch per layer per decode step on the card."""
+    from repro_torch.checkpoint.checkpointer import tree_map
+    from repro_torch.configs.base import BLOCK_LOCAL_ATTN, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    t0 = time.monotonic()
+    cfg = get_config(arch).replace(num_layers=ZOO_CPU_LAYERS[arch],
+                                   dtype="float32")
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(28), device="cuda")
+    host = tree_map(lambda a: a.cpu(), params)
+    S = GEMMA3_PROMPT if cfg.window_size else ZOO_PROMPT
+    rng = np.random.default_rng(28)
+    toks = rng.integers(0, cfg.vocab_size, (2, S))
+    lengths = np.asarray([S, S - 37])
+    fed = rng.integers(0, cfg.vocab_size, (ZOO_FED, 2, 1))
+    leaf = "embed" if cfg.tie_embeddings else "head"
+
+    def run(dev, p, impl):
+        tokens = torch.as_tensor(toks, device=dev)
+        with torch.no_grad():
+            outs = [model_lib.forward(p, cfg, tokens[:1], attn_impl="full")]
+            cache = model_lib.init_cache(cfg, 2, S + ZOO_FED,
+                                         dtype=torch.float32, device=dev)
+            for s in range(0, S, 64):
+                lg, _ = model_lib.prefill_into_slots(
+                    p, cfg, cache, tokens[:, s:s + 64], lengths,
+                    chunk_start=s)
+                outs.append(lg)
+            for t, tok in enumerate(fed):
+                lg, _ = model_lib.decode_step(
+                    p, cfg, cache, torch.as_tensor(tok, device=dev),
+                    torch.as_tensor(lengths + t, dtype=torch.int32,
+                                    device=dev), attn_impl=impl)
+                outs.append(lg)
+        w = p[leaf].detach().requires_grad_()
+        loss, _ = model_lib.loss_fn({**p, leaf: w}, cfg,
+                                    {"tokens": tokens[:1]}, attn_impl="full")
+        grad, = torch.autograd.grad(loss, w)
+        return [o.cpu() for o in outs] + [loss.detach().cpu(), grad.cpu()]
+
+    ops.reset_launches()
+    card = run("cuda", params, "kernel")
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES["decode_attention"]
+    t1 = time.monotonic()
+    cpu = run("cpu", host, "full")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    r = [rel(a, b) for a, b in zip(card, cpu)]
+    n_chunks = -(-S // 64)
+    want = cfg.num_layers * ZOO_FED
+    local = sum(t == BLOCK_LOCAL_ATTN for t in cfg.layer_types())
+    ok = (max(r) <= ZOO_RTOL and launched == want
+          and all(bool(torch.isfinite(a).all()) for a in card))
+    print(f"zoo card vs CPU ({arch}, full width, {cfg.num_layers} layers "
+          f"({local} local, window {cfg.window_size}), f32, prompts "
+          f"{lengths.tolist()}): max|card-cpu| / max|cpu| forward "
+          f"{r[0]:.2e}, {n_chunks} prefill chunks "
+          f"{max(r[1:1 + n_chunks]):.2e}, decode steps "
+          f"{[float(f'{x:.2e}') for x in r[1 + n_chunks:-2]]}, loss "
+          f"{r[-2]:.2e} ({float(cpu[-2]):.5f}), {leaf} gradient "
+          f"{r[-1]:.2e} (rtol {ZOO_RTOL}); decode_attention launches "
+          f"{launched} ({cfg.num_layers} layers x {ZOO_FED} steps); card "
+          f"{t1 - t0:.1f} s with init, CPU {time.monotonic() - t1:.1f} s "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch}: the card disagrees with the CPU")
+    del params, host, card, cpu
+    torch.cuda.empty_cache()
+
+
+def zoo_train(torch, np, ops, arch):
+    """(b) ``python -m repro_torch.launch.train --arch <arch> --reduce 0
+    --optimizer blockllm --batch 8 --seq 256 --steps 8`` through
+    ``family_train_main_path`` (its gates): ``gemma3-1b`` and
+    ``gemma-2b`` at full depth, ``deepseek-7b`` at
+    ``DEEPSEEK_TRAIN_LAYERS``; the peak under ``ZOO_PEAK_GIB``."""
+    from repro_torch.configs.base import get_config
+    argv = ["--arch", arch, "--reduce", "0", "--optimizer", "blockllm",
+            "--batch", "8", "--seq", "256", "--steps", "8"]
+    full = get_config(arch).num_layers
+    layers = ZOO_TRAIN_LAYERS.get(arch, full)
+    if layers != full:
+        argv += ["--layers", str(layers)]
+    launches, peak, p50 = family_train_main_path(torch, np, ops, argv=argv,
+                                                 label=arch)
+    print(f"{arch} train: {layers} of {full} layers at full width, peak "
+          f"{peak / 2 ** 30:.2f} GiB (limit {ZOO_PEAK_GIB}), step p50 "
+          f"{p50:.1f} ms")
+    if peak / 2 ** 30 >= ZOO_PEAK_GIB:
+        raise AssertionError(f"{arch} train: the peak is not under the "
+                             f"limit")
+    return launches, peak, p50
+
+
+def zoo_tenant(torch, params, seed):
+    """A tenant on the card: row 1 of every stack leaf moved by N(0, 0.01^2)
+    noise (torch draws: no host noise), published to an in-memory
+    registry as ``tuned``."""
+    from repro_torch.adapters import InMemoryRegistry, extract_delta
+    from repro_torch.checkpoint.checkpointer import tree_map
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def bump(a):
+        out = a.clone()
+        out[1] += 0.01 * torch.randn(a.shape[1:], generator=g,
+                                     device=a.device, dtype=a.dtype)
+        return out
+    tuned = dict(params)
+    tuned["stages"] = [{pos: tree_map(bump, sub) for pos, sub in st.items()}
+                       for st in params["stages"]]
+    registry = InMemoryRegistry()
+    registry.put("tuned", extract_delta(params, tuned,
+                                        meta={"adapter_id": "tuned"}))
+    return registry
+
+
+def zoo_serve_leg(torch, ops, cfg, params, reqs, config, registry=None):
+    """One ``DecodeServer`` run of ``reqs`` ((prompt, tenant) pairs,
+    ``ZOO_NEW`` new tokens each) with the launch counts reset just before
+    and read just after; the base weights restored after it."""
+    from repro_torch.runtime.serve_loop import DecodeServer, Request
+    srv = DecodeServer(cfg, params, config, registry=registry)
+    out = [Request(rid=i, prompt=p, max_new_tokens=ZOO_NEW, adapter_id=a)
+           for i, (p, a) in enumerate(reqs)]
+    for r in out:
+        srv.submit(r)
+    ops.reset_launches()
+    t0 = time.monotonic()
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    st = srv.stats()
+    srv.restore_base()
+    kv = st.get("kv") or {}
+    leg = dict(streams=[tuple(r.out) for r in out], launches=launches,
+               steps=st["decode"]["steps"], wall=wall,
+               p50=st["decode"]["step_ms"]["p50"],
+               hits=kv.get("prefix_hit_pages", 0),
+               share=srv.alloc is not None and srv.alloc.share_prefix,
+               spec=st.get("spec") if srv.speculate else None,
+               prefill=srv.prefill_dispatches)
+    del srv
+    torch.cuda.empty_cache()
+    return leg
+
+
+def zoo_serving(torch, np, ops, arch):
+    """(c) Full width and depth, f32 weights, bf16 compute and cache,
+    kernel attention, 8 slots, ``ZOO_NEW`` new tokens a request, through
+    ``DecodeServer``, dense and paged (16-row pages): streams complete and
+    bitwise equal between the layouts; one dense decode-attention launch
+    per layer per decode step dense, and paged one per local layer (its
+    ring stays dense) plus one paged launch per global layer.
+    ``gemma3-1b``: 12 requests of 520-720-token prompts (the 512-row rings
+    wrap while a prompt is primed and while it decodes; the second wave
+    reuses rings the first filled), prefix sharing off as in JAX.
+    ``gemma-2b``: 24 requests, half of them a tenant's (``zoo_tenant``),
+    over a shared 48-token system prompt, 2-step turns (each tenant is
+    admitted in more than one wave): prefix hits in the paged run, then
+    ``--speculate 4`` (paged): streams equal plain decoding, one paged
+    launch per layer per decode pass.
+    ``deepseek-7b``: 12 requests of 64-320 tokens, dense, and a second
+    run of them, bitwise.  Then the profile of a steady decode step
+    (``decode_stepper``: 8 slots at 300-900-token contexts; ``gemma3-1b``
+    dense and paged).  Returns the legs' launches and the profiles'
+    (wall, busy) ms per step."""
+    from repro_torch.configs.base import BLOCK_GLOBAL_ATTN, get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.serve_config import (KVConfig, SchedConfig,
+                                                  ServeConfig, SpecConfig)
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    n_global = sum(t == BLOCK_GLOBAL_ATTN for t in cfg.layer_types())
+    t0 = time.monotonic()
+    params = model_lib.init_params(cfg, generator=torch.Generator(
+        "cuda").manual_seed(28), device="cuda")
+    rng = np.random.default_rng(28)
+    registry = None
+    if arch == "gemma3-1b":
+        reqs = [(rng.integers(0, cfg.vocab_size, int(n)), None)
+                for n in rng.integers(520, 721, 12)]
+        max_seq, turn = 768, 8
+    elif arch == "gemma-2b":
+        registry = zoo_tenant(torch, params, 28)
+        system = rng.integers(0, cfg.vocab_size, 48)
+        reqs = [(np.concatenate([system, rng.integers(
+            0, cfg.vocab_size, int(rng.integers(8, 40)))]),
+            "tuned" if i % 2 else None) for i in range(24)]
+        max_seq, turn = 256, 2
+    else:
+        reqs = [(rng.integers(0, cfg.vocab_size, int(n)), None)
+                for n in rng.integers(64, 321, 12)]
+        max_seq, turn = 512, 8
+    init_s = time.monotonic() - t0
+    base = ServeConfig(batch_slots=8, max_seq=max_seq, attn_impl="kernel",
+                       prefill_chunk=64,
+                       sched=SchedConfig(steps_per_turn=turn))
+    paged = base.replace(kv=KVConfig(layout="paged", page_size=PAGED_PS))
+    legs = {"dense": zoo_serve_leg(torch, ops, cfg, params, reqs, base,
+                                   registry)}
+    if arch == "deepseek-7b":
+        legs["again"] = zoo_serve_leg(torch, ops, cfg, params, reqs, base,
+                                      registry)
+    else:
+        legs["paged"] = zoo_serve_leg(torch, ops, cfg, params, reqs, paged,
+                                      registry)
+    if arch == "gemma-2b":
+        legs["speculative"] = zoo_serve_leg(
+            torch, ops, cfg, params, reqs,
+            paged.replace(spec=SpecConfig(draft=4)), registry)
+    fails = []
+    ref = legs["dense"]["streams"]
+    for name, leg in legs.items():
+        la, steps = leg["launches"], leg["steps"]
+        spec = leg["spec"]
+        passes = steps if spec is None else \
+            spec["passes"] + steps - spec["rounds"]
+        if name in ("dense", "again"):
+            want = {"decode_attention": L * passes,
+                    "paged_decode_attention": 0}
+        else:
+            want = {"decode_attention": (L - n_global) * passes,
+                    "paged_decode_attention": n_global * passes}
+        got = {k: la[k] for k in want}
+        same = leg["streams"] == ref
+        complete = all(len(s) == ZOO_NEW for s in leg["streams"])
+        extra = ""
+        if spec is not None:
+            extra = (f"; {spec['rounds']} rounds, acceptance "
+                     f"{spec['acceptance_rate']:.3f} ({spec['accepted']} / "
+                     f"{spec['drafted']}), {spec['passes']} passes in "
+                     f"rounds + {steps - spec['rounds']} plain steps")
+        print(f"zoo serving ({arch}, {name}): {sum(map(len, leg['streams']))}"
+              f" tokens, {steps} decode steps, {leg['prefill']} prefill "
+              f"dispatches, step ms p50 {leg['p50']:.2f}, {leg['wall']:.2f} s"
+              f" wall; launches {got} (want {want}), scatter_swap "
+              f"{la['scatter_swap']}; prefix sharing {leg['share']}, hits "
+              f"{leg['hits']} pages{extra}; complete {complete}; streams "
+              f"bitwise the dense run's: {same}")
+        if not (same and complete):
+            fails.append(f"{name}: streams differ from the dense run's or "
+                         f"are incomplete")
+        if got != want:
+            fails.append(f"{name}: launches {got} != {want}")
+        if registry is not None and not la["scatter_swap"]:
+            fails.append(f"{name}: no tenant swap")
+    if arch == "gemma3-1b" and (legs["paged"]["share"]
+                                or legs["paged"]["hits"]):
+        fails.append("prefix sharing on with local rings")
+    if arch == "gemma-2b":
+        if not legs["paged"]["hits"]:
+            fails.append("no prefix hits")
+        if not legs["speculative"]["spec"]["rounds"]:
+            fails.append("no speculative round")
+    if fails:
+        raise AssertionError(f"zoo serving ({arch}): {fails}")
+    profiles = {}
+    for paged_step in ((False, True) if arch == "gemma3-1b" else (False,)):
+        with torch.no_grad():
+            step, lengths = decode_stepper(torch, np, cfg, params, paged_step)
+            _, wall_ms, busy = profile_steps(
+                torch, step, ("paged_" if paged_step else "dense_") + arch,
+                f"{arch}, bf16, B8, contexts {int(lengths.min())}-"
+                f"{int(lengths.max())}, kernel attention")
+        profiles["paged" if paged_step else "dense"] = (wall_ms, busy)
+        del step
+        torch.cuda.empty_cache()
+    print(f"zoo serving ({arch}): weights drawn in {init_s:.2f} s, legs and "
+          f"profiles {time.monotonic() - t0 - init_s:.1f} s")
+    del params, registry
+    torch.cuda.empty_cache()
+    return legs, profiles
+
+
+def zoo_family(torch, np, ops, da, results, card):
+    """Phase 28: the decode kernels at the new shapes, then per
+    architecture (a) card vs CPU, (b) BlockLLM training through the
+    launcher, (c) serving at full width and depth with the decode-step
+    profiles."""
+    t0 = time.monotonic()
+    zoo_kernels(torch, np, da, results)
+    times = {"kernels": time.monotonic() - t0}
+    out = {}
+    for arch in ZOO_ARCHS:
+        t = time.monotonic()
+        zoo_card_vs_cpu(torch, np, arch)
+        t1 = time.monotonic()
+        train, peak, p50 = zoo_train(torch, np, ops, arch)
+        t2 = time.monotonic()
+        legs, profiles = zoo_serving(torch, np, ops, arch)
+        times[arch] = (t1 - t, t2 - t1, time.monotonic() - t2)
+        out[arch] = dict(train=train, peak=peak, p50=p50, legs=legs,
+                         profiles=profiles)
+    parts = []
+    for a in ZOO_ARCHS:
+        steps = ", ".join(f"{k} {w:.2f} / {b:.2f} ms"
+                          for k, (w, b) in out[a]["profiles"].items())
+        parts.append(f"{a} card vs CPU {times[a][0]:.1f} s, training "
+                     f"{times[a][1]:.1f} s, serving and profile "
+                     f"{times[a][2]:.1f} s, training peak "
+                     f"{out[a]['peak'] / 2 ** 30:.2f} GiB, step p50 "
+                     f"{out[a]['p50']:.1f} ms, decode step wall / busy "
+                     f"{steps}")
+    print(f"phase 28 (the zoo): kernels {times['kernels']:.1f} s; "
+          + "; ".join(parts) + f" ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4709,11 +5152,16 @@ def main() -> int:
                                       "Li128ELi4E",       # hd 128, G 4
                                       "Li64ELi3E",        # hd 64, G 3
                                       "Li64ELi1E",        # hd 64, G 1
+                                      "Li256ELi4E",       # hd 256, G 4
+                                      "Li256ELi8E",       # hd 256, G 8
+                                      "Li128ELi1E",       # hd 128, G 1
                                       "Li256ELi10E",      # f32 cache, G 10
                                       # bf16 cache, G 10: tensor cores
                                       "decode_attention_g10_mma_kernel"],
                  "paged_decode_attention": ["Li128ELi2ELb1E",
-                                            "Li64ELi3ELb1E"],
+                                            "Li64ELi3ELb1E",
+                                            "Li256ELi4ELb1E",
+                                            "Li256ELi8ELb1E"],
                  "scatter_swap": ["scatter_swap"],
                  "rglru_scan": ["rglru_scan"],
                  # bf16 on the tensor cores at hd 128 and hd 256; f32
@@ -4736,9 +5184,11 @@ def main() -> int:
                 short = entry[entry.find(name) if at < 0 else at:][:60]
                 print(f"    {short}: "
                       f"{line.replace('ptxas info    : ', '')}")
-                # the tensor-core kernels must not spill
+                # the tensor-core kernels and the decode body's model
+                # instantiations must not spill
                 spill = re.search(r"(\d+) bytes spill stores", line)
-                if "mma" in want and spill and int(spill.group(1)):
+                if ("mma" in want or "decode_attention" in name) \
+                        and spill and int(spill.group(1)):
                     raise AssertionError(f"{short} spills: {line}")
         if name == "rglru_scan":
             # nor the scan kernels, forward and backward
@@ -4935,38 +5385,64 @@ def main() -> int:
     # full-depth decode; whole-sequence prefill of the recurrent families
     p_train, p_swaps, p_decode, p_scans = pixtral_family(torch, np, ops, da,
                                                          results, card)
-    print(f"phase 27: {time.monotonic() - t6:.1f} s")
+    t7 = time.monotonic()
+    print(f"phase 27: {t7 - t6:.1f} s")
     results["decode_attention"]["g4_launches"] = \
         p_decode["decode_attention"]
     results["rglru_scan"]["prefill_launches"] = p_scans
+
+    # phase 28: the rest of the zoo: the decode kernels at G = 4 / 8, hd
+    # 256 and G = 1, hd 128, KV 32; gemma3-1b, gemma-2b and deepseek-7b
+    # card vs CPU, BlockLLM training through the launcher, serving at
+    # full width and depth
+    zoo = zoo_family(torch, np, ops, da, results, card)
+    print(f"phase 28: {time.monotonic() - t7:.1f} s")
+    zoo_legs = [leg for a in ZOO_ARCHS for leg in zoo[a]["legs"].values()]
+    for name in ("decode_attention", "paged_decode_attention"):
+        results[name]["zoo_launches"] = sum(leg["launches"][name]
+                                            for leg in zoo_legs)
+    zoo_swaps = sum(leg["launches"]["scatter_swap"] for leg in zoo_legs)
+    zoo_adam = sum(zoo[a]["train"]["masked_adam"] for a in ZOO_ARCHS)
 
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path; the swap and the f32 masked Adam add the
     # xLSTM serving and training runs (phase 25), the whisper apply and
-    # training runs (phase 26) and the pixtral ones (phase 27)
-    launches = {"decode_attention": launches["decode_attention"],
+    # training runs (phase 26), the pixtral ones (phase 27) and the zoo's
+    # serving and training runs (phase 28), whose decode launches add to
+    # both decode kernels' counts
+    launches = {"decode_attention": (launches["decode_attention"]
+                                     + results["decode_attention"][
+                                         "zoo_launches"]),
                 "scatter_swap": (launches["scatter_swap"]
                                  + x_serve["scatter_swap"] + w_swaps
-                                 + p_swaps),
-                "paged_decode_attention": p_launches["paged_decode_attention"],
+                                 + p_swaps + zoo_swaps),
+                "paged_decode_attention": (
+                    p_launches["paged_decode_attention"]
+                    + results["paged_decode_attention"]["zoo_launches"]),
                 "masked_adam_q8": t_launches["masked_adam_q8"],
                 "masked_adam": (f32_launches["masked_adam"]
                                 + x_train["masked_adam"]
                                 + w_train["masked_adam"]
-                                + p_train["masked_adam"]),
+                                + p_train["masked_adam"] + zoo_adam),
                 "rglru_scan": rg_launches["rglru_scan"],
                 "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
-    path_of = {"decode_attention": "serving main path",
+    zoo_names = ", ".join(ZOO_ARCHS)
+    path_of = {"decode_attention": f"serving main path and the {zoo_names} "
+                                   f"serving runs",
                "scatter_swap": f"serving main path, the {XLSTM_ARCH} "
-                               f"serving run and the {WHISPER_ARCH} and "
-                               f"{PIXTRAL_ARCH} applies",
-               "paged_decode_attention": "paged serving main path",
+                               f"serving run, the {WHISPER_ARCH} and "
+                               f"{PIXTRAL_ARCH} applies and the gemma-2b "
+                               f"tenant's serving runs",
+               "paged_decode_attention": f"paged serving main path and the "
+                                         f"gemma3-1b and gemma-2b paged "
+                                         f"serving runs",
                "masked_adam_q8": "training main path (blockllm+q8)",
                "masked_adam": f"blockllm f32 run (fused_update='kernel') "
-                              f"and the {XLSTM_ARCH}, {WHISPER_ARCH} and "
-                              f"{PIXTRAL_ARCH} training main paths",
+                              f"and the {XLSTM_ARCH}, {WHISPER_ARCH}, "
+                              f"{PIXTRAL_ARCH} and {zoo_names} training "
+                              f"main paths",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
                              f"and remat recompute)",
                "rglru_scan_bwd": f"{RG_ARCH} training main path "

@@ -6,10 +6,11 @@ all eight trainer cores.
   ``tools/check_memory.py``'s ``GATE_ARCH`` / ``GATE_HYPER`` equals
   ``benchmarks/memory_baselines.json`` byte for byte (the test only
   reads those two files).
-- **Trajectories**, from JAX's initial weights (LoRA: and JAX's factor
-  tree, carried through ``interop``: JAX's ``lora_init`` folds Python's
-  salted ``hash`` of the leaf path into its key, so its values cannot be
-  drawn again in another process), on the same ``TokenPipeline``
+- **Trajectories**, from JAX's initial weights (LoRA: and one factor
+  tree drawn from a fixed numpy seed, put into both packages' states:
+  JAX's ``lora_init`` folds Python's salted ``hash`` of the leaf path
+  into its key, so its own draw differs from process to process), on the
+  same ``TokenPipeline``
   batches, f32 on the CPU:
   - GaLore inside one projection window (``update_proj_gap`` > steps):
     losses within rtol 1e-5 and parameters within atol 1e-5 (the
@@ -38,6 +39,7 @@ import json
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -117,11 +119,35 @@ def _handles(name, setup, *, gap=100, switch_every=2):
     th = trainers.handle(name, tcfg, _port(jparams), device="cpu",
                          adam=Adam(lr=1e-3), **kw)
     if name == "lora":
-        # JAX's factors (B = 0, A drawn under a salted hash) carried over
-        factors = _port(jh.state.arrays["factors"])
+        # JAX's lora_init draws A under Python's salted hash of the leaf
+        # path, so each process would start from other factors: both
+        # packages start from one numpy draw instead (B = 0, A ~ N(0,
+        # 1/m), lora_init's distributions), the same under every salt
+        jf = _pinned_factors(jh.state.arrays["factors"])
+        jh.state.arrays["factors"] = jf
+        jh.state.arrays["opt"] = jh.core.adam.init(jf)
+        factors = _port(jf)
         th.state.arrays["factors"] = factors
         th.state.arrays["opt"] = th.core.adam.init(factors)
     return jh, th
+
+
+def _pinned_factors(tree, seed=0):
+    """LoRA factors shaped as ``tree`` drawn from a fixed numpy seed: each
+    ``A`` [..., m, r] normal / sqrt(m) in the tree's leaf order, each
+    ``B`` zero."""
+    rng = np.random.RandomState(seed)
+
+    def draw(f):
+        if f is None:
+            return None
+        m = f["A"].shape[-2]
+        a = rng.standard_normal(f["A"].shape) / np.sqrt(m)
+        return {"A": jnp.asarray(a, jnp.float32),
+                "B": jnp.zeros(f["B"].shape, jnp.float32)}
+
+    return jax.tree.map(draw, tree, is_leaf=lambda x: x is None or (
+        isinstance(x, dict) and "A" in x))
 
 
 def _losses(jh, th, pipe, steps, rtol, start=0):
