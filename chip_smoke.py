@@ -303,6 +303,21 @@ What it does, failing (non-zero exit, no result line) on any error:
    ``--speculate 4`` equal to plain decoding; ``deepseek-7b``: dense,
    bitwise a second run), one decode launch per layer per decode pass,
    and the decode step's wall and busy ms under the profiler;
+29. distributed BlockLLM training (the port's slice 16) over NCCL at
+   world size 1 (one card: NCCL refuses two ranks on one device; the
+   multi-rank numerics are the CPU tests'): ``launch.steps.
+   build_train_setup`` for ``internlm2-1.8b`` at full width and depth,
+   8 x 256, f32 masters, on ``make_host_mesh()``'s (1, 1) mesh, then
+   ``StepSetup.shard`` and 3 calls, against the same 3 steps through the
+   core's single-device raw step from the same state: (a) loss, updated
+   rows and both moments bitwise, one ``masked_adam`` launch per
+   selected leaf per step, peak memory and step times (host clock and
+   CUDA events); (b) the int8 error-feedback all-reduce over the step's
+   selected-row gradients, twice: codes and scales bitwise the CPU
+   codec's, ``new_e`` bitwise ``gc - deq`` and within half its block's
+   scale (beyond it only where ``gc / scale`` rounds onto a tie, by at
+   most that rounding), the mean bitwise ``deq``; (c) (a)'s collective
+   counter, calls and bytes by kind;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -5103,6 +5118,208 @@ def zoo_family(torch, np, ops, da, results, card):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 29: distributed BlockLLM training over NCCL (slice 16)
+# ---------------------------------------------------------------------
+
+
+def _selected_grads(torch, core, params, sel, plan, batch):
+    """The selected rows' (and leaf units') gradients of ``batch``'s
+    loss, through the overlay the step itself uses."""
+    from repro_torch.checkpoint.checkpointer import (_flatten_with_names,
+                                                     tree_map)
+    sel_g = tree_map(lambda a: a.detach().requires_grad_(), sel)
+    overlay = {sid: {"idx": plan.stack_idx[sid].tolist(), "rows": rows,
+                     "pidx": None, "probe": None}
+               for sid, rows in sel_g["stacks"].items()}
+    merged = dict(params)
+    merged.update(sel_g["leaves"])
+    loss, _ = core._loss_fn(merged, batch, overlay=overlay)
+    names, leaves, _ = _flatten_with_names(sel_g)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return dict(zip(names, grads))
+
+
+def _check_compressed(torch, rules, grads, card):
+    """Phase 29 (b): the int8 error-feedback all-reduce over the step's
+    selected-row gradients, twice (zero errors, then the errors the first
+    call left).  Gates: the codes and scales on the card are the CPU
+    codec's bit for bit; ``new_e`` is ``gc - deq`` bit for bit and within
+    half its block's scale, except where ``gc / scale`` rounds onto a tie
+    (there within the division's rounding of it); the mean is ``deq`` bit
+    for bit (one rank)."""
+    from repro_torch.runtime import compression, shard_ctx
+    errors = compression.init_errors(grads)
+    n_el, ties, worst = 0, 0, 0.0
+    for call in range(2):
+        with shard_ctx.use(rules):
+            mean, new_e = compression.compressed_psum_tree(grads, errors)
+        for name, g in grads.items():
+            gc = g.float() + errors[name]
+            q, s = compression.quantize_int8(gc)
+            qc, sc = compression.quantize_int8(gc.cpu())
+            if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)):
+                raise AssertionError(f"{name}: codes or scales differ from "
+                                     f"the CPU codec")
+            deq = compression.dequantize_int8(q, s, g.shape)
+            e = new_e[name]
+            if not torch.equal(e, gc - deq):
+                raise AssertionError(f"{name}: new_e is not gc - deq")
+            if not torch.equal(mean[name], deq.to(g.dtype)):
+                raise AssertionError(f"{name}: the mean is not deq")
+            half = (s / 2).repeat_interleave(compression.BLOCK)[:g.numel()]
+            half = half.reshape(g.shape)
+            over = e.abs() > half
+            if over.any():
+                # gc / scale rounded onto a tie k + 1/2, and round-half-
+                # even took the farther code: past half a step by at most
+                # the division's rounding, |gc / scale| * 2^-24 steps
+                r = (gc / (2 * half))[over]
+                tie = (r.abs() - r.abs().floor()) == 0.5
+                lim = 2 * half[over] * (0.5 + r.abs() * 2.0 ** -23)
+                if not (tie.all() and (e.abs()[over] <= lim).all()):
+                    raise AssertionError(f"{name}: |new_e| above half a step")
+                ties += int(over.sum())
+            worst = max(worst, float((e.abs() / half.clamp_min(1e-30))
+                                     .max()))
+            n_el += g.numel()
+        errors = new_e
+    print(f"phase 29 (b) compressed all-reduce (int8 error feedback, NCCL, "
+          f"world 1) over {len(grads)} selected leaves, {n_el} elements in "
+          f"2 calls: codes and scales bitwise the CPU codec's, new_e bitwise "
+          f"gc - deq, max |new_e| / (scale / 2) {worst:.7f} ({ties} rounded "
+          f"onto a tie), mean bitwise deq: ok ({card})")
+
+
+@contextmanager
+def world_of_one():
+    """A process group of this process alone over NCCL (a ``FileStore``
+    in a temporary directory), destroyed on the way out; yields
+    ``torch.distributed``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    rdv = tempfile.mkdtemp(prefix="phase29_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/store",
+                            rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def distributed_setup(torch):
+    """Phase 29's step: ``build_train_setup`` for ``internlm2-1.8b`` at
+    full width and depth on the (1, 1) mesh, 8 x 256, f32 masters; the
+    core, its state, 3 batches, the full arguments and this rank's
+    shards of them (a list)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    mesh = mesh_lib.make_host_mesh()
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("phase29", seq_len=256, global_batch=8, kind="train")
+    setup = steps_lib.build_train_setup(
+        cfg, shape, mesh, optimizer="blockllm", attn_impl="full",
+        param_dtype=torch.float32, device="cuda")
+    core = setup.meta["core"]
+    state = core.init(torch.Generator("cuda").manual_seed(0))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                    global_batch=8, seed=0))
+    batches = [core.to_device(pipe.batch(s)) for s in range(3)]
+    full = core.lowerable(state, batches[0]).args
+    return setup, core, state, batches, full, list(setup.shard(full))
+
+
+def distributed_train(torch, np, ops, card):
+    """Phase 29: ``launch.steps.build_train_setup`` for ``internlm2-1.8b``
+    at full width and depth over NCCL at world size 1 (one card: NCCL
+    refuses two ranks on one device; the multi-rank numerics are the CPU
+    tests'), 8 x 256, f32 masters.  (a) 3 distributed steps against the
+    core's single-device raw step from the same state: loss, updated rows
+    and moments bitwise, the masked-Adam launches the plan's (one per
+    selected leaf per step); (b) the compressed all-reduce; (c) the
+    collective counter of (a).  Returns (a)'s masked-Adam launches."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.runtime import shard_ctx
+    t0 = time.monotonic()
+    with world_of_one():
+        setup, core, state, batches, full, local = distributed_setup(torch)
+        n_leaves = len(_flatten_with_names(full[1])[1])
+        # (a) the distributed steps, counted
+        ops.reset_launches()
+        shard_ctx.reset_collectives()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        d_loss, host_ms, dev_ms = [], [], []
+        for b in batches:
+            local[7] = setup.shard((None,) * 7 + (b,))[7]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            h0 = time.monotonic()
+            ev[0].record()
+            sel, opt, masks, loss, _, _ = setup(*local)
+            ev[1].record()
+            torch.cuda.synchronize()
+            host_ms.append((time.monotonic() - h0) * 1e3)
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+            local[1], local[5], local[6] = sel, opt, masks
+            d_loss.append(loss.clone())
+        launches = dict(ops.LAUNCHES)
+        counts = {k: list(v) for k, v in shard_ctx.COLLECTIVES.items()}
+        peak = torch.cuda.max_memory_allocated()
+        # the same steps through the core's single-device raw step
+        fn = core.lowerable(state, batches[0]).fn
+        args = list(full)
+        s_loss = []
+        for b in batches:
+            args[7] = b
+            sel1, opt1, masks1, loss1, _, _ = fn(*args)
+            args[1], args[5], args[6] = sel1, opt1, masks1
+            s_loss.append(loss1.clone())
+        pairs = [("loss", a, b) for a, b in zip(d_loss, s_loss)]
+        for what, x, y in (("rows", local[1], args[1]),
+                           ("mu", local[5].mu, args[5].mu),
+                           ("nu", local[5].nu, args[5].nu)):
+            pairs += [(what, a, b) for a, b in zip(
+                _flatten_with_names(x)[1], _flatten_with_names(y)[1])]
+        bad = [w for w, a, b in pairs if not torch.equal(a, b)]
+        print(f"phase 29 (a) distributed BlockLLM step ({ARCH}, full width "
+              f"and depth, 8 x 256, f32 masters, mesh (1, 1) NCCL): losses "
+              f"{[round(float(x), 6) for x in d_loss]}; single-device raw "
+              f"step {[round(float(x), 6) for x in s_loss]}; loss, "
+              f"{n_leaves} selected leaves' rows and both moments over 3 "
+              f"steps bitwise: {not bad}; step ms host "
+              f"{[round(x, 1) for x in host_ms]} (p50 "
+              f"{np.percentile(host_ms, 50):.1f}), CUDA events "
+              f"{[round(x, 1) for x in dev_ms]} (p50 "
+              f"{np.percentile(dev_ms, 50):.1f}); peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB; launches {launches} ({card})")
+        if bad:
+            raise AssertionError(f"distributed step differs from the "
+                                 f"single-device step in {sorted(set(bad))}")
+        want = 3 * n_leaves
+        if launches["masked_adam"] != want:
+            raise AssertionError(f"masked_adam launched "
+                                 f"{launches['masked_adam']} times, the plan "
+                                 f"gives {want} (3 steps x {n_leaves} leaves)")
+        # (b) the compressed all-reduce over the step's gradients
+        grads = _selected_grads(torch, core, full[0], local[1],
+                                setup.meta["plan"], batches[0])
+        _check_compressed(torch, setup.rules, grads, card)
+        # (c) the collective counter of (a)
+        print(f"phase 29 (c) collectives of (a), kind: [calls, bytes]: "
+              f"{counts}")
+        del setup, core, state, full, local, args, grads
+    torch.cuda.empty_cache()
+    print(f"phase 29: {time.monotonic() - t0:.1f} s")
+    return launches["masked_adam"]
+
+
 def main() -> int:
     try:
         import torch
@@ -5404,6 +5621,11 @@ def main() -> int:
     zoo_swaps = sum(leg["launches"]["scatter_swap"] for leg in zoo_legs)
     zoo_adam = sum(zoo[a]["train"]["masked_adam"] for a in ZOO_ARCHS)
 
+    # phase 29: distributed BlockLLM training (build_train_setup ->
+    # StepSetup.shard -> 3 calls) over NCCL at world size 1, bitwise the
+    # single-device step; the int8 error-feedback all-reduce
+    dist_adam = distributed_train(torch, np, ops, card)
+
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path; the swap and the f32 masked Adam add the
@@ -5424,7 +5646,8 @@ def main() -> int:
                 "masked_adam": (f32_launches["masked_adam"]
                                 + x_train["masked_adam"]
                                 + w_train["masked_adam"]
-                                + p_train["masked_adam"] + zoo_adam),
+                                + p_train["masked_adam"] + zoo_adam
+                                + dist_adam),
                 "rglru_scan": rg_launches["rglru_scan"],
                 "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
@@ -5439,10 +5662,11 @@ def main() -> int:
                                          f"gemma3-1b and gemma-2b paged "
                                          f"serving runs",
                "masked_adam_q8": "training main path (blockllm+q8)",
-               "masked_adam": f"blockllm f32 run (fused_update='kernel') "
-                              f"and the {XLSTM_ARCH}, {WHISPER_ARCH}, "
+               "masked_adam": f"blockllm f32 run (fused_update='kernel'), "
+                              f"the {XLSTM_ARCH}, {WHISPER_ARCH}, "
                               f"{PIXTRAL_ARCH} and {zoo_names} training "
-                              f"main paths",
+                              f"main paths and the distributed step "
+                              f"(phase 29)",
                "rglru_scan": f"{RG_ARCH} training main path (forward "
                              f"and remat recompute)",
                "rglru_scan_bwd": f"{RG_ARCH} training main path "

@@ -14,6 +14,15 @@ do not require a gradient, so autograd never builds their backward.
 In place where JAX donates: the step updates ``sel`` and the optimizer
 state in place (through the kernels on the fused path) and returns
 them; ``masks`` is replaced at a refresh step.
+
+Under a ``runtime.shard_ctx`` mesh (``launch.steps``) the gradient hook
+runs after ``torch.autograd.grad``: the selected rows' gradients are
+reduce-scattered (the data mean) into the ZeRO chunks of their moments
+and the update runs there (``optim.zero.adam_step``), the probe rows'
+gradients are all-reduced, and the per-unit squared norms, the loss
+and the metrics are reduced too — over the model group as well for a
+model-split leaf — so every rank selects the same rows.  Only the
+active rows cross the wire.
 """
 from __future__ import annotations
 
@@ -28,9 +37,8 @@ from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.core import units as units_lib
 from repro_torch.core.selection import SelectorConfig
 from repro_torch.core.units import Plan, PlanStructure, UnitIndex
-from repro_torch.kernels import ops as kernel_ops
-from repro_torch.optim.adam import AdamState
-from repro_torch.optim.q8adam import Q8AdamState, is_quantized
+from repro_torch.optim import zero as zero_lib
+from repro_torch.runtime import shard_ctx
 
 # the JAX package's "pallas" is the port's "kernel", "interpret" its "plain"
 FUSED_MODES = ("off", "auto", "kernel", "plain")
@@ -112,26 +120,36 @@ def build_step_fn(cfg, index: UnitIndex, adam, bcfg: BlockLLMConfig,
             for name, sub in sel_g["leaves"].items():
                 merged[name] = sub
             loss, metrics = loss_fn(merged, batch, overlay=overlay)
-        _, sl, td_sel = _flatten_with_names(sel_g)
-        _, pl, td_probe = _flatten_with_names(probe_g)
+        sel_names, sl, td_sel = _flatten_with_names(sel_g)
+        probe_names, pl, td_probe = _flatten_with_names(probe_g)
         # a row's leaf the loss does not reach gets JAX's zero gradient:
         # an encoder-decoder row's xattn wk / wv, whose cross k/v come
         # from the frozen params, not the overlay (as in JAX)
         grads = torch.autograd.grad(loss, sl + pl, allow_unused=True,
                                     materialize_grads=True)
         g_sel = td_sel.unflatten(grads[:len(sl)])
-        g_probe = td_probe.unflatten(grads[len(sl):])
+        g_probe = list(grads[len(sl):])
         del sel_g, probe_g, merged, grads
+        ctx = shard_ctx.get()
+        if ctx is not None and refresh:
+            raise NotImplementedError(
+                "the mask-refresh step stays on one device: the distributed "
+                "step is built with refresh=False, as JAX's lowerable")
 
         with torch.no_grad():
-            # per-unit gradient norms -> host norm dictionary
-            norm_out = {"stacks": {}, "leaves": {}, "probe": {}}
-            for sid, rows in g_sel["stacks"].items():
-                norm_out["stacks"][sid] = units_lib.per_row_sq_norms(rows)
-            for name, sub in g_sel["leaves"].items():
-                norm_out["leaves"][name] = units_lib.subtree_sq_norm(sub)
-            for sid, rows in g_probe.items():
-                norm_out["probe"][sid] = units_lib.per_row_sq_norms(rows)
+            if not refresh:
+                # the gradient hook (probe rows in the same bucket) and
+                # the update on this rank's ZeRO chunks
+                new_masks = masks
+                new_sel, new_opt, zero, g_c = zero_lib.adam_step(
+                    adam, g_sel, opt_state, sel,
+                    update_mask=masks if with_masks else None, fused=fused,
+                    extra=g_probe)
+                g_c, g_probe = g_c[:len(sl)], g_c[len(sl):]
+            else:
+                zero, g_c = None, _flatten_with_names(g_sel)[1]
+            norm_out = _norms(ctx, sel_names, g_c, zero, probe_names,
+                              g_probe)
             del g_probe
 
             if refresh:
@@ -154,32 +172,73 @@ def build_step_fn(cfg, index: UnitIndex, adam, bcfg: BlockLLMConfig,
                 new_masks = {"stacks": tree_map(stack_mask, upds["stacks"]),
                              "leaves": tree_map(leaf_mask, upds["leaves"])}
                 del upds
-            else:
-                new_masks = masks
-
-            if fused != "off" and not refresh:
-                mask_arg = new_masks if with_masks else None
-                kw = dict(lr=adam._lr(opt_state.count), b1=adam.b1,
-                          b2=adam.b2, eps=adam.eps,
-                          weight_decay=adam.weight_decay,
-                          count=int(opt_state.count), mode=fused)
-                count = (opt_state.count + 1).to(torch.int32)
-                if is_quantized(adam):
-                    # moments stay int8 + scale end to end
-                    kernel_ops.masked_adam_q8_tree(
-                        sel, g_sel, opt_state.mu_q, opt_state.mu_scale,
-                        opt_state.nu_q, opt_state.nu_scale, mask_arg, **kw)
-                    new_opt = Q8AdamState(count, *opt_state[1:])
-                else:
-                    kernel_ops.masked_adam_tree(sel, g_sel, opt_state.mu,
-                                                opt_state.nu, mask_arg, **kw)
-                    new_opt = AdamState(count, opt_state.mu, opt_state.nu)
-                new_sel = sel
-            else:
-                new_sel, new_opt = adam.update(
-                    g_sel, opt_state, sel,
-                    update_mask=new_masks if with_masks or refresh else None)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return new_sel, new_opt, new_masks, loss.detach(), metrics, norm_out
+                new_sel, new_opt = adam.update(g_sel, opt_state, sel,
+                                               update_mask=new_masks)
+        loss, metrics = shard_ctx.reduce_metrics(loss.detach(), {
+            k: v.detach() for k, v in metrics.items()})
+        return new_sel, new_opt, new_masks, loss, metrics, norm_out
 
     return step
+
+
+def _param_name(sel_name: str) -> str:
+    """A selection / probe leaf's parameter name: ``stacks/s0/pos1/attn/
+    wq`` or ``s0/pos1/attn/wq`` -> ``stages/0/pos1/attn/wq``;
+    ``leaves/embed`` -> ``embed``."""
+    parts = sel_name.split("/")
+    if parts[0] == "leaves":
+        return "/".join(parts[1:])
+    if parts[0] == "stacks":
+        parts = parts[1:]
+    return "/".join(["stages", parts[0][1:]] + parts[1:])
+
+
+def _norms(ctx, sel_names, g_sel, zero, probe_names, g_probe):
+    """Per-unit squared gradient norms from the reduced gradients: each
+    leaf's part summed over the ranks holding its other pieces (the data
+    group for a ZeRO chunk, the model group for a model-split leaf), in
+    as few all-reduces as there are such groups."""
+    parts = {}   # unit -> {axes: partial [K] or scalar}
+
+    def add(unit, name, s, chunked):
+        axes = ()
+        if ctx is not None:
+            if chunked:
+                axes += tuple(ctx.dp_axes)
+            if ctx.tp_sharded(_param_name(name)):
+                axes += (ctx.tp_axis,)
+        by = parts.setdefault(unit, {})
+        by[axes] = s if axes not in by else by[axes] + s
+
+    for i, (name, g) in enumerate(zip(sel_names, g_sel)):
+        p = name.split("/")
+        sq = g.float().square()
+        chunked = zero is not None and zero.dims[i] is not None
+        if p[0] == "stacks":
+            add(("stacks", f"{p[1]}/{p[2]}"), name,
+                zero.row_sums(i, sq) if zero is not None
+                else units_lib.per_row_sq_norms(g), chunked)
+        else:
+            add(("leaves", p[1]), name, sq.sum(), chunked)
+    for name, g in zip(probe_names, g_probe):
+        p = name.split("/")
+        add(("probe", f"{p[0]}/{p[1]}"), name,
+            units_lib.per_row_sq_norms(g), False)
+    # one all-reduce per reduction group, over every unit's partial
+    by_axes = {}
+    for unit, by in parts.items():
+        for axes, t in by.items():
+            by_axes.setdefault(axes, []).append((unit, t))
+    norm_out = {"stacks": {}, "leaves": {}, "probe": {}}
+    for axes, items in by_axes.items():
+        if axes:
+            flat = shard_ctx.sum_over(torch.cat(
+                [t.reshape(-1) for _, t in items]), axes)
+            off = 0
+            for i, (unit, t) in enumerate(items):
+                items[i] = (unit, flat[off:off + t.numel()].reshape(t.shape))
+                off += t.numel()
+        for (kind, unit), t in items:
+            prev = norm_out[kind].get(unit)
+            norm_out[kind][unit] = t if prev is None else prev + t
+    return norm_out

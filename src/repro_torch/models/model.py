@@ -86,6 +86,8 @@ from repro_torch.configs.base import (BLOCK_GLOBAL_ATTN, BLOCK_LOCAL_ATTN,
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe, rglru, xlstm
+from repro_torch.runtime import shard_ctx
+from repro_torch.runtime.moe_parallel import moe_apply_maybe_sharded
 
 Pytree = Any
 
@@ -121,6 +123,29 @@ def check_supported(cfg: ModelConfig) -> None:
     else:
         return
     raise NotImplementedError(f"{cfg.name}: {why} is not supported")
+
+
+def check_tensor_parallel(cfg: ModelConfig, tp_size=None) -> None:
+    """Raise where tensor parallelism (a model axis above 1, from the
+    installed ``shard_ctx`` unless ``tp_size`` is given) meets a block
+    the port does not split yet: RG-LRU, encoder-decoder, VLM."""
+    if tp_size is None:
+        ctx = shard_ctx.get()
+        tp_size = ctx.tp_size if ctx is not None else 1
+    if tp_size <= 1:
+        return
+    if BLOCK_RECURRENT in cfg.layer_types():
+        what = "RG-LRU blocks"
+    elif cfg.is_encoder_decoder:
+        what = "the encoder-decoder"
+    elif cfg.vision_embed_dim:
+        what = "the VLM's vision projection"
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: tensor parallelism over {what} is not ported (ROADMAP "
+        f"queue A, item 4b: TP for the RG-LRU, encoder-decoder and VLM "
+        f"blocks); data parallelism runs")
 
 
 def _cdtype(cfg) -> torch.dtype:
@@ -159,7 +184,10 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     values as casting the tree at the end, without an f32 copy of it)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = generator or torch.Generator(dev).manual_seed(0)
+    # the meta device (``launch.specs.params_abstract``) has no
+    # generator: a CPU one stands in, and meta tensors draw nothing
+    gen = generator or torch.Generator(
+        "cpu" if dev.type == "meta" else dev).manual_seed(0)
     d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
 
     def normal(shape, std):
@@ -652,10 +680,8 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     window = cfg.window_size if btype == BLOCK_LOCAL_ATTN else 0
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     B, S, D = h.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (h @ params["attn"]["wq"].to(h.dtype)).reshape(B, S, H, hd)
-    k = (h @ params["attn"]["wk"].to(h.dtype)).reshape(B, S, KV, hd)
-    v = (h @ params["attn"]["wv"].to(h.dtype)).reshape(B, S, KV, hd)
+    q, k, v, tp_heads = _qkv(cfg, params["attn"], h)
+    H, hd = q.shape[2], cfg.resolved_head_dim
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     if mode == "decode" and "pk" in cache:
@@ -677,18 +703,62 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
             cache.update(_prefill_rows(cfg, btype, k, v))
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    x = x + o.reshape(B, S, H * hd) @ params["attn"]["wo"].to(x.dtype)
+    y = o.reshape(B, S, H * hd) @ params["attn"]["wo"].to(x.dtype)
+    if tp_heads:
+        y = shard_ctx.constrain(y, "residual")    # row-parallel wo: g
+    x = x + y
     if xkv is not None and "xattn" in params:
         x = _cross_attend(cfg, params, x, xkv)
     h = layers.rms_norm(params["ln2"], x, cfg.norm_eps)
     if "moe" in params:
         # the aux loss only where a loss is taken: serving drops it
-        y, aux = moe.moe_apply(params["moe"], h, cfg,
-                               with_aux=mode == "train")
+        y, aux = moe_apply_maybe_sharded(params["moe"], h, cfg,
+                                         with_aux=mode == "train")
         return x + y, aux
     if cfg.d_ff:
-        return x + layers.mlp_apply(params["mlp"], h, cfg.mlp_type), None
+        mlp = params["mlp"]
+        tp = shard_ctx.tp_split(mlp["w_down"].shape[-2], cfg.d_ff)
+        if tp:
+            h = shard_ctx.constrain(h, "block_in")     # f
+        y = layers.mlp_apply(mlp, h, cfg.mlp_type)
+        if tp:
+            y = shard_ctx.constrain(y, "residual")     # g
+        return x + y, None
     return x, None
+
+
+def _qkv(cfg, attn, h):
+    """The block's q [B,S,H,hd] and k / v [B,S,KV,hd] from the normed
+    residual, and whether the heads are split over the model axis.
+
+    Under tensor parallelism the projections are this rank's column
+    shards (the local head counts come from their widths), ``h`` passes
+    Megatron's f, and the caller's ``wo`` product its g.  Where the
+    query heads divide the model axis and the K/V heads do not, K/V stay
+    replicated: each rank takes the K/V head of each of its query heads
+    (query head i reads K/V head i // (H / KV)), and the replicated
+    weights' partial gradients are summed over the model group."""
+    B, S, _ = h.shape
+    hd = cfg.resolved_head_dim
+    wq, wk, wv = attn["wq"], attn["wk"], attn["wv"]
+    H = wq.shape[-1] // hd
+    tp = shard_ctx.tp_split(H, cfg.num_heads)
+    if tp:
+        h = shard_ctx.constrain(h, "block_in")
+    kv_whole = tp and wk.shape[-1] // hd == cfg.num_kv_heads
+    if kv_whole:
+        wk = shard_ctx.tp_replicated_weight(wk)
+        wv = shard_ctx.tp_replicated_weight(wv)
+    q = (h @ wq.to(h.dtype)).reshape(B, S, H, hd)
+    k = (h @ wk.to(h.dtype)).reshape(B, S, -1, hd)
+    v = (h @ wv.to(h.dtype)).reshape(B, S, -1, hd)
+    if kv_whole:
+        group = cfg.num_heads // cfg.num_kv_heads
+        first = shard_ctx.tp_rank() * H
+        idx = torch.tensor([(first + i) // group for i in range(H)],
+                           device=h.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v, tp
 
 
 def _resolve_overlay(bp, g, ov):
@@ -780,6 +850,13 @@ def _embed(params, cfg, tokens, *, patch_embeds=None, base_pos=0,
     (or, for a decode step, of each slot's ``pos_b`` [B]), computed in
     f32 and cast to the compute dtype before the add, as in JAX."""
     emb = params["embed"]
+    vocab_tp = shard_ctx.tp_split(emb.shape[0], cfg.vocab_size)
+    if vocab_tp:
+        # vocab-parallel rows: each rank looks up the tokens it owns
+        # (zeros elsewhere) and the model group sums the rows (g)
+        local = tokens - shard_ctx.tp_rank() * emb.shape[0]
+        own = (local >= 0) & (local < emb.shape[0])
+        tokens = torch.where(own, local, torch.zeros_like(local))
     if emb.requires_grad:
         # training the table: JAX's cast-then-gather, so the gradient
         # accumulates over repeated tokens in the compute dtype as in JAX;
@@ -790,6 +867,8 @@ def _embed(params, cfg, tokens, *, patch_embeds=None, base_pos=0,
         # gather, then cast: the same values without casting the whole
         # table
         x = emb[tokens].to(_cdtype(cfg))
+    if vocab_tp:
+        x = shard_ctx.constrain(x * own[..., None].to(x.dtype), "residual")
     if patch_embeds is not None:
         P, S = patch_embeds.shape[1], x.shape[1]
         if S < P:
@@ -808,7 +887,17 @@ def _embed(params, cfg, tokens, *, patch_embeds=None, base_pos=0,
     return x
 
 
+def _vocab_tp(params, cfg) -> bool:
+    """True iff the output vocab is split over the model axis here."""
+    w = params["embed"] if cfg.tie_embeddings else params["head"].T
+    return shard_ctx.tp_split(w.shape[0], cfg.vocab_size)
+
+
 def _unembed(params, cfg, x):
+    """Logits in x's dtype; under vocab parallelism this rank's columns
+    (x passes Megatron's f first)."""
+    if _vocab_tp(params, cfg):
+        x = shard_ctx.constrain(x, "block_in")
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
     else:
@@ -900,6 +989,7 @@ def _hidden(params, cfg, tokens, *, attn_impl, overlay=None, frames=None,
     by) an encoder-decoder model.  ``patch_embeds`` [B, P, E]: a VLM's
     stub patch embeddings (see ``_embed``)."""
     check_supported(cfg)
+    check_tensor_parallel(cfg)
     if attn_impl not in TRAIN_ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: full-sequence attention "
                          f"is one of {TRAIN_ATTN_IMPLS}")
@@ -976,10 +1066,24 @@ def _labels_mask(batch):
     return labels, mask
 
 
-def _xent_from_logits(logits, labels, mask):
+def _xent_from_logits(logits, labels, mask, vocab_tp=False):
+    """Summed masked cross entropy.  ``vocab_tp``: ``logits`` are this
+    rank's vocab columns; the max and the sum of exponentials are reduced
+    over the model group and the target logit comes from its owner."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    if not vocab_tp:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return ((logz - gold) * mask).sum()
+    Vl = logits.shape[-1]
+    m = shard_ctx.tp_max(logits.detach().amax(dim=-1))
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    logz = m + torch.log(shard_ctx.constrain(se, "residual"))
+    local = labels.long() - shard_ctx.tp_rank() * Vl
+    own = (local >= 0) & (local < Vl)
+    gold = logits.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = shard_ctx.constrain(torch.where(own, gold, torch.zeros_like(gold)),
+                               "residual")
     return ((logz - gold) * mask).sum()
 
 
@@ -993,8 +1097,11 @@ def _chunked_xent(params, cfg, hidden, labels, mask, chunk):
     while S % chunk:
         chunk -= 1
 
+    vocab_tp = _vocab_tp(params, cfg)
+
     def piece(xc, lc, mc):
-        return _xent_from_logits(_unembed(params, cfg, xc), lc, mc)
+        return _xent_from_logits(_unembed(params, cfg, xc), lc, mc,
+                                 vocab_tp)
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s in range(0, S, chunk):
@@ -1030,11 +1137,20 @@ def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl="chunked",
                                 loss_chunk)
     else:
         nll_sum = _xent_from_logits(_unembed(params, cfg, hidden), labels,
-                                    mask)
-    denom = torch.clamp(mask.sum(), min=1.0)
+                                    mask, _vocab_tp(params, cfg))
+    tokens = mask.sum()
+    ctx = shard_ctx.get()
+    if ctx is not None:
+        # data parallel: the global token count over the data ranks, so
+        # the ranks' mean loss is the global batch's (equal shards give
+        # each rank's own mean)
+        tokens = shard_ctx.data_sum(tokens)
+        denom = torch.clamp(tokens, min=1.0) / ctx.dp_size
+    else:
+        denom = torch.clamp(tokens, min=1.0)
     nll = nll_sum / denom
     loss = nll + aux
-    return loss, {"nll": nll, "aux": aux, "tokens": mask.sum()}
+    return loss, {"nll": nll, "aux": aux, "tokens": tokens}
 
 
 def prefill_into_slots(params, cfg: ModelConfig, cache, tokens, lengths, *,

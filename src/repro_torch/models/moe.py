@@ -32,9 +32,11 @@ one kept pair reads (``_GatherUnique``).
 
 Chunks of ``token_chunk`` tokens run under ``torch.utils.checkpoint``
 when a gradient is taken (JAX's rematerialized scan); the aux loss is
-averaged over the chunks.  JAX's ``runtime/moe_parallel.py`` (a
-``shard_map`` over a mesh) is ``moe_apply`` on one device, which is what
-the port calls.
+averaged over the chunks.  ``tp_group`` (JAX's ``tp_axis``): the
+expert weights are this rank's model-axis shards; the experts read the
+tokens through Megatron's f, and one all-reduce over the model group
+(g) sums the routed experts' partial outputs, with the shared expert's
+folded in, before the combine (``runtime/moe_parallel.py``).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.runtime import shard_ctx
 
 
 def moe_init(cfg, *, generator, device, groups):
@@ -169,9 +172,10 @@ def route_log(keep_routes: bool = False):
         _LOG = prev
 
 
-def _moe_chunk(params, xt, cfg, C, with_aux):
+def _moe_chunk(params, xt, cfg, C, with_aux, tp_group=False):
     """One token chunk: xt [T, D] -> (y [T, D], aux, topi, keep, probs);
-    ``aux`` None unless ``with_aux``."""
+    ``aux`` None unless ``with_aux``.  ``tp_group``: the experts are
+    model-axis shards (see ``moe_apply``)."""
     T, D = xt.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = (xt @ params["router"].to(xt.dtype)).float()
@@ -205,10 +209,26 @@ def _moe_chunk(params, xt, cfg, C, with_aux):
                                        torch.full_like(token_id, T)))
     disp = disp[:, :C].reshape(-1)
     own = torch.where(keep, topi * C + rank, torch.full_like(rank, E * C))
-    xe = _Dispatch.apply(xt, disp, own).reshape(E, C, D)
+    # expert tensor parallelism: the experts read the tokens through f
+    # and their partial outputs (with a split shared expert's) are summed
+    # over the model group in one all-reduce (g) before the combine, so
+    # the routing weights' gradient is whole on every rank
+    xin = shard_ctx.constrain(xt, "block_in") if tp_group else xt
+    xe = _Dispatch.apply(xin, disp, own).reshape(E, C, D)
     h = torch.bmm(xe, params["w_gate"].to(xe.dtype))
     u = torch.bmm(xe, params["w_up"].to(xe.dtype))
     ye = torch.bmm(F.silu(h) * u, params["w_down"].to(xe.dtype))
+    shared = None
+    if tp_group:
+        sh = params.get("shared")
+        if sh is not None and shard_ctx.tp_split(sh["w_down"].shape[-2],
+                                                 cfg.shared_expert_d_ff):
+            both = shard_ctx.constrain(torch.cat(
+                [ye.reshape(E * C, D),
+                 layers.mlp_apply(sh, xin, "swiglu")]), "residual")
+            ye, shared = both[:E * C].reshape(E, C, D), both[E * C:]
+        else:
+            ye = shard_ctx.constrain(ye, "residual")
 
     # combine: the k slots one at a time, in x's dtype
     read = (topi * C + rank.clamp(max=C - 1)).reshape(-1)
@@ -221,12 +241,13 @@ def _moe_chunk(params, xt, cfg, C, with_aux):
         y = y + picked[:, j] * wj[:, None]
 
     if "shared" in params:
-        y = y + layers.mlp_apply(params["shared"], xt, "swiglu")
+        y = y + (layers.mlp_apply(params["shared"], xt, "swiglu")
+                 if shared is None else shared)
     return y, aux, topi, keep, probs
 
 
 def moe_apply(params, x, cfg, *, capacity=None, token_chunk=8192,
-              with_aux=True):
+              with_aux=True, tp_group=False):
     """x [B, S, D] -> (y [B, S, D], aux loss f32 scalar, or None without
     ``with_aux``: serving steps, which would throw it away).
 
@@ -248,10 +269,10 @@ def moe_apply(params, x, cfg, *, capacity=None, token_chunk=8192,
         xc = xt[i * chunk:(i + 1) * chunk]
         if remat:
             out = torch.utils.checkpoint.checkpoint(
-                lambda a: _moe_chunk(params, a, cfg, C, with_aux), xc,
-                use_reentrant=False)
+                lambda a: _moe_chunk(params, a, cfg, C, with_aux, tp_group),
+                xc, use_reentrant=False)
         else:
-            out = _moe_chunk(params, xc, cfg, C, with_aux)
+            out = _moe_chunk(params, xc, cfg, C, with_aux, tp_group)
         y, a, topi, keep, probs = out
         if _LOG is not None:
             _LOG.add(topi, keep, probs)

@@ -1,22 +1,33 @@
-"""The int8 block codec of ``repro.runtime.compression`` (Q8 state).
+"""Gradient compression for the data-parallel all-reduce (counterpart
+of ``repro.runtime.compression``): the int8 block codec and the
+error-feedback all-reduce built on it.
 
-Each 256-element block of a flattened tensor is stored as int8 codes with
-one f32 scale:
+The codec: each 256-element block of a flattened tensor is stored as
+int8 codes with one f32 scale:
 
     scale = max(max|x| / 127, 1e-12);  codes = clip(round(x / scale), +-127)
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the codes
 are bit-identical to the JAX package's for the same f32 input.  The last
-block is zero padded.  Only the codec is ported; the error-feedback
-all-reduce waits for distributed training (ROADMAP queue A10).
+block is zero padded.
+
+``compressed_psum_tree``: each rank quantizes ``g + e`` (its gradient
+plus its carried error), keeps ``gc - deq`` as its new error, and the
+int8 codes and f32 scales go over the wire (one all-gather of each over
+the data group, 4.06x smaller than f32); every rank then sums the
+ranks' dequantized values in rank order, so the mean is the same bits
+on every rank.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.numerics import div_exact
+
+Pytree = Any
 
 BLOCK = 256
 
@@ -40,3 +51,42 @@ def dequantize_int8(q, scale, shape, dtype=torch.float32) -> torch.Tensor:
     for d in shape:
         n *= d
     return vals.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+def compressed_psum_tree(grads: Pytree, errors: Pytree, dp_axes=None):
+    """Error-feedback int8 mean over the data axes of the installed
+    ``shard_ctx`` (``dp_axes`` overrides its axes).
+
+    ``grads`` / ``errors``: matching trees (errors f32, same shapes).
+    Returns ``(mean_grads, new_errors)``: per leaf the mean over the
+    ranks of ``dequantize(quantize(g + e))`` in the gradient's dtype, and
+    ``g + e - dequantize(quantize(g + e))``.  Without a context the mean
+    is over this rank alone."""
+    from repro_torch.runtime import shard_ctx
+    ctx = shard_ctx.get()
+    axes = (dp_axes if dp_axes is not None
+            else (ctx.dp_axes if ctx is not None else ()))
+    n = ctx.axis_size(axes) if ctx is not None else 1
+    _, gl, td = _flatten_with_names(grads)
+    el = _flatten_with_names(errors)[1]
+    means, new_errors = [], []
+    for g, e in zip(gl, el):
+        gc = g.float() + e
+        q, s = quantize_int8(gc)
+        new_errors.append(gc - dequantize_int8(q, s, g.shape))
+        if ctx is not None:
+            q = shard_ctx.all_gather(q, axes, "ef/all_gather")
+            s = shard_ctx.all_gather(s, axes, "ef/all_gather")
+        nb = q.shape[0] // n
+        total = None
+        for r in range(n):
+            d = dequantize_int8(q[r * nb:(r + 1) * nb], s[r * nb:(r + 1) * nb],
+                                g.shape)
+            total = d if total is None else total + d
+        means.append((total / n).to(g.dtype))
+    return td.unflatten(means), td.unflatten(new_errors)
+
+
+def init_errors(grads_like: Pytree) -> Pytree:
+    return tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
+                                          device=a.device), grads_like)

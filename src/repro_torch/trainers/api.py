@@ -15,12 +15,16 @@ package, so a JAX checkpoint resumes in the port.
 Where JAX donates array groups to its jitted step, the port's step
 updates them in place: after ``step(state, batch)`` treat the input
 state as consumed (``state_spec.donate`` names the groups).
+
+``init_abstract`` (the state as meta tensors) and ``lowerable`` (the raw
+step in positional form, with a sharding role per argument) feed the
+distributed step builder, ``launch.steps``.
 """
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +36,6 @@ Metrics = Dict[str, Any]
 
 # host meta keeps a bounded loss window (patience triggers, logging)
 HISTORY_CAP = 256
-
-_DISTRIBUTED = ("distributed lowering is not ported yet (ROADMAP queue "
-                "A10: distributed + tooling)")
 
 
 @dataclass
@@ -55,6 +56,33 @@ class StateSpec:
     meta: Tuple[str, ...]
     donate: Tuple[str, ...] = ()
     roles: Tuple[Tuple[str, str], ...] = ()
+
+    def role(self, key: str) -> str:
+        for k, r in self.roles:
+            if k == key:
+                return r
+        return "params"
+
+    def donate_argnums(self) -> Tuple[int, ...]:
+        """Positional indices of the consumed groups for a step laid out
+        as ``fn(*arrays-in-spec-order, batch)``."""
+        return tuple(i for i, k in enumerate(self.arrays)
+                     if k in self.donate)
+
+
+@dataclass
+class Lowerable:
+    """A core's raw train step in positional form, for the distributed
+    builder: ``fn(*args)``, ``args`` parallel to ``roles`` (params |
+    active | masks | opt | index | scalar | batch).  ``out_args``: per
+    output of ``fn``, the argument whose layout it has (None: replicated
+    — the loss, metrics and norms)."""
+    fn: Callable
+    args: Tuple
+    roles: Tuple[str, ...]
+    donate: Tuple[int, ...] = ()
+    out_args: Tuple[Optional[int], ...] = ()
+    meta: Dict[str, Any] = field(default_factory=dict)
 
 
 class TrainerCore:
@@ -100,10 +128,31 @@ class TrainerCore:
         return float(loss)
 
     def init_abstract(self, params_abstract: Pytree) -> TrainState:
-        raise NotImplementedError(_DISTRIBUTED)
+        """``init`` over meta tensors (``launch.specs.params_abstract``):
+        the state's shapes and dtypes, no storage, no draws."""
+        device, self.device = self.device, torch.device("meta")
+        try:
+            return self.init(torch.Generator("cpu"), params_abstract)
+        finally:
+            self.device = device
 
-    def lowerable(self, state: TrainState, batch):
-        raise NotImplementedError(_DISTRIBUTED)
+    def lowerable(self, state: TrainState, batch) -> Lowerable:
+        """The raw step as ``fn(*arrays, batch)`` over
+        ``state_spec.arrays`` order, returning the new arrays, the loss
+        and the metrics."""
+        keys = self.state_spec.arrays
+        raw = self._raw_step
+
+        def fn(*call_args):
+            arrays = dict(zip(keys, call_args[:-1]))
+            new_arrays, loss, metrics = raw(arrays, call_args[-1])
+            return tuple(new_arrays[k] for k in keys) + (loss, metrics)
+
+        args = tuple(state.arrays[k] for k in keys) + (batch,)
+        roles = tuple(self.state_spec.role(k) for k in keys) + ("batch",)
+        return Lowerable(fn=fn, args=args, roles=roles,
+                         donate=self.state_spec.donate_argnums(),
+                         out_args=tuple(range(len(keys))) + (None, None))
 
     def _init_meta(self) -> Dict[str, Any]:
         return {"step": 0, "loss_history": []}

@@ -37,8 +37,8 @@ from repro_torch.models import model as model_lib
 from repro_torch.optim.adam import Adam, AdamState
 from repro_torch.optim.q8adam import (Q8Adam, from_adam_state, is_quantized,
                                       to_adam_state)
-from repro_torch.trainers.api import (HISTORY_CAP, StateSpec, TrainerCore,
-                                      TrainState, nbytes)
+from repro_torch.trainers.api import (HISTORY_CAP, Lowerable, StateSpec,
+                                      TrainerCore, TrainState, nbytes)
 from repro_torch.trainers.registry import register
 
 Pytree = Any
@@ -347,6 +347,31 @@ class BlockLLMCore(TrainerCore):
         return units_lib.merge_active(
             state.arrays["params"], index, self.plan_of(state),
             {"sel": state.arrays["sel"], "probe": state.arrays["probe"]})
+
+    def lowerable(self, state: TrainState, batch) -> Lowerable:
+        """The raw step in JAX's positional layout (nine args), built
+        with ``refresh=False``: selection, probe rotation and the mask
+        refresh stay host orchestration, outside the step."""
+        index = self.index_for(state.arrays["params"])
+        plan = self.plan_of(state)
+        with_masks = state.arrays["masks"] is not None
+        raw = build_step_fn(self.cfg, index, self.adam, self.bcfg,
+                            plan.structure, refresh=False,
+                            with_masks=with_masks, loss_fn=self._loss_fn)
+        args = (state.arrays["params"], state.arrays["sel"],
+                state.arrays["probe"], plan.stack_idx, plan.probe_idx,
+                state.arrays["opt"],
+                state.arrays["masks"] if with_masks else None,
+                batch, float(state.meta["q"]))
+        roles = ("params", "active", "active", "index", "index", "opt",
+                 "active", "batch", "scalar")
+        sizes = index.unit_sizes()
+        tot = sum(sizes[u] for u in plan.selected_labels() if u in sizes)
+        return Lowerable(
+            fn=raw, args=args, roles=roles, donate=(1, 5, 6),
+            out_args=(1, 5, 6, None, None, None),
+            meta={"plan": plan, "q": float(state.meta["q"]),
+                  "active_fraction": tot / index.total_params})
 
     def memory_report(self, state: TrainState) -> Dict[str, int]:
         report = {

@@ -2,7 +2,8 @@
 ``repro.trainers.full_adam``): dense gradients and dense moments, the
 paper's memory baseline.  ``adam+q8`` stores the moments as int8 blocks
 + f32 scales (``optim.q8adam``).  The step updates ``params`` and
-``opt`` in place (JAX donates both)."""
+``opt`` in place (JAX donates both); under a ``shard_ctx`` mesh the
+moments are ZeRO chunks (``optim.zero.adam_step``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -11,7 +12,9 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.models import model as model_lib
+from repro_torch.optim import zero as zero_lib
 from repro_torch.optim.adam import Adam
+from repro_torch.runtime import shard_ctx
 from repro_torch.optim.q8adam import Q8Adam, is_quantized
 from repro_torch.trainers.api import StateSpec, TrainerCore, TrainState, nbytes
 from repro_torch.trainers.registry import register
@@ -55,9 +58,11 @@ class FullAdamCore(TrainerCore):
         loss, metrics = self._loss_fn(td.unflatten(req), batch)
         grads = td.unflatten(list(torch.autograd.grad(loss, req)))
         del req
-        params, opt = self.adam.update(grads, arrays["opt"],
-                                       arrays["params"])
-        return {"params": params, "opt": opt}, loss.detach(), metrics
+        with torch.no_grad():
+            params, opt, _, _ = zero_lib.adam_step(
+                self.adam, grads, arrays["opt"], arrays["params"])
+        loss, metrics = shard_ctx.reduce_metrics(loss.detach(), metrics)
+        return {"params": params, "opt": opt}, loss, metrics
 
     def memory_report(self, state: TrainState) -> Dict[str, int]:
         report = {

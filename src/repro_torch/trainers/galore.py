@@ -2,7 +2,12 @@
 ``repro.trainers.galore``): arrays ``{params, opt}`` (``opt`` is the
 ``GaLoreState``: projections + projected moments), host meta ``{step,
 loss_history}``.  The optimizer math is ``baselines.galore.GaLore``.
-The step updates ``params`` and ``opt`` in place (JAX donates both)."""
+The step updates ``params`` and ``opt`` in place (JAX donates both).
+
+Under a ``shard_ctx`` mesh the gradients take the data mean
+(``shard_ctx.reduce_grads``) and the GaLore state stays whole on every
+rank: its projection refresh is an SVD of the whole gradient matrix.
+A model axis above 1 is refused (ROADMAP queue A, item 4b)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -12,6 +17,7 @@ import torch
 from repro_torch.baselines.galore import GaLore
 from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.models import model as model_lib
+from repro_torch.runtime import shard_ctx
 from repro_torch.trainers.api import StateSpec, TrainerCore, TrainState, nbytes
 from repro_torch.trainers.registry import register
 
@@ -45,14 +51,21 @@ class GaLoreCore(TrainerCore):
                           self._init_meta())
 
     def _raw_step(self, arrays, batch):
+        ctx = shard_ctx.get()
+        if ctx is not None and ctx.tp_size > 1:
+            raise NotImplementedError(
+                "galore under tensor parallelism: the projection's SVD needs "
+                "the whole gradient matrix (ROADMAP queue A, item 4b)")
         _, leaves, td = _flatten_with_names(arrays["params"])
         req = [l.detach().requires_grad_() for l in leaves]
         loss, metrics = self._loss_fn(td.unflatten(req), batch)
-        grads = td.unflatten(list(torch.autograd.grad(loss, req)))
+        grads = torch.autograd.grad(loss, req)
         del req
+        grads = td.unflatten(shard_ctx.reduce_grads(list(grads)))
         params, opt = self.galore.update(grads, arrays["opt"],
                                          arrays["params"])
-        return {"params": params, "opt": opt}, loss.detach(), metrics
+        loss, metrics = shard_ctx.reduce_metrics(loss.detach(), metrics)
+        return {"params": params, "opt": opt}, loss, metrics
 
     def memory_report(self, state: TrainState) -> Dict[str, int]:
         report = {

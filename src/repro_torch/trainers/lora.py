@@ -2,7 +2,9 @@
 ``repro.trainers.lora``): arrays ``{params, factors, opt}`` (the base
 frozen; Adam over the factor tree), host meta ``{step, loss_history}``.
 The factor math is ``baselines.lora``.  The step updates ``factors`` and
-``opt`` in place (JAX donates both)."""
+``opt`` in place (JAX donates both); under a ``shard_ctx`` mesh the
+moments are ZeRO chunks (``optim.zero.adam_step``).  The factors are
+whole matrices, so a model axis above 1 is refused."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -12,7 +14,9 @@ import torch
 from repro_torch.baselines.lora import lora_init, lora_merge
 from repro_torch.checkpoint.checkpointer import _flatten_with_names, tree_map
 from repro_torch.models import model as model_lib
+from repro_torch.optim import zero as zero_lib
 from repro_torch.optim.adam import Adam
+from repro_torch.runtime import shard_ctx
 from repro_torch.trainers.api import StateSpec, TrainerCore, TrainState, nbytes
 from repro_torch.trainers.registry import register
 
@@ -57,16 +61,23 @@ class LoRACore(TrainerCore):
         return lora_merge(params, factors, alpha=self.alpha, rank=self.rank)
 
     def _raw_step(self, arrays, batch):
+        ctx = shard_ctx.get()
+        if ctx is not None and ctx.tp_size > 1:
+            raise NotImplementedError(
+                "lora under tensor parallelism: the factors' product is a "
+                "whole weight (ROADMAP queue A, item 4b)")
         _, leaves, td = _flatten_with_names(arrays["factors"])
         req = [l.detach().requires_grad_() for l in leaves]
         loss, metrics = self._loss_fn(
             self._merge(arrays["params"], td.unflatten(req)), batch)
         grads = td.unflatten(list(torch.autograd.grad(loss, req)))
         del req
-        factors, opt = self.adam.update(grads, arrays["opt"],
-                                        arrays["factors"])
+        with torch.no_grad():
+            factors, opt, _, _ = zero_lib.adam_step(
+                self.adam, grads, arrays["opt"], arrays["factors"])
+        loss, metrics = shard_ctx.reduce_metrics(loss.detach(), metrics)
         return ({"params": arrays["params"], "factors": factors, "opt": opt},
-                loss.detach(), metrics)
+                loss, metrics)
 
     @torch.no_grad()
     def merged_params(self, state: TrainState) -> Pytree:

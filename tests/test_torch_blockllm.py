@@ -241,8 +241,17 @@ def test_blockllm_memory_report_and_state_spec():
     assert rep["total_train_state"] == sum(
         v for k, v in rep.items() if k not in ("params_bytes",
                                                "total_train_state"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        th.core.lowerable(th.state, None)
+    # the distributed builder's view: JAX's nine positional args and
+    # roles, and the state over meta tensors
+    low = th.core.lowerable(th.state, {"tokens": None})
+    assert len(low.args) == 9 and low.roles == (
+        "params", "active", "active", "index", "index", "opt", "active",
+        "batch", "scalar")
+    assert low.donate == (1, 5, 6) and 0 < low.meta["active_fraction"] < 1
+    abstract = th.core.init_abstract(tparams)
+    assert abstract.meta["stack_idx"] == th.state.meta["stack_idx"]
+    assert all(t.device.type == "meta" for t in
+               _flatten_with_names(abstract.arrays["sel"])[1])
     # the baselines are ported: a GaLore state honors its spec too
     galore = trainers.make("galore", tcfg, device="cpu")
     trainers.check_state(galore, galore.init(None, tparams))
