@@ -318,6 +318,28 @@ What it does, failing (non-zero exit, no result line) on any error:
    scale (beyond it only where ``gc / scale`` rounds onto a tie, by at
    most that rounding), the mean bitwise ``deq``; (c) (a)'s collective
    counter, calls and bytes by kind;
+30. the sharded serving setups (the port's slice 17): (a) the decode
+   kernel's shard variant at gemma3-1b's global shape (G 4, KV 1, hd
+   256, a bf16 cache of 524288 rows, 2 slots, one of which leaves the
+   later shards without a visible row): the whole-cache call with offset
+   0 and the log-sum-exp bitwise the call without them, the cache split
+   into 8 and 256 shards merged with ``shard_ctx.merge_softmax`` within
+   ``SHARD_RTOL`` of one whole call and within the kernel tolerance of
+   today's call, sampled shards against the plain version, a ring case
+   at gemma3-1b's local layers and recurrentgemma-2b's G 10 ring; a
+   shard call's and the whole call's times beside the bound and SDPA;
+   (b) ``build_setup``'s decode setup at world size 1 over NCCL for
+   ``gemma3-1b`` at long_500k (1 x 524288) and ``internlm2-1.8b`` at
+   decode_32k cut to one data rank's share of (32, 8) (4 x 32768), 4
+   greedy steps with ``kernel``: logits and the whole cache bitwise the
+   single-device ``decode_step``, logits within ``LOGIT_BF16_TOL`` of
+   ``full``, decode-attention launches = attention layers x steps, no
+   collective at world size 1, step p50 and peak memory, then the
+   decode kernel against its plain version on one global layer's cache
+   of the leg (its B, C, G, hd, bf16 q and cache) with a query whose
+   scores peak on rows spread over the cache (``peaked_query``); (c) the
+   prefill setup of ``gemma3-1b`` at prefill_32k cut to 1 x 32768:
+   bitwise the single-device ``prefill``, wall time and peak memory;
 then a ``kernels:`` summary and one JSON line with every kernel's
 numbers, the card's name and power limit again, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -5320,6 +5342,447 @@ def distributed_train(torch, np, ops, card):
     return launches["masked_adam"]
 
 
+# ---------------------------------------------------------------------
+# phase 30: sharded prefill and decode setups (slice 17)
+# ---------------------------------------------------------------------
+
+SHARD_C = 524288           # gemma3-1b's global layers at long_500k
+SHARD_SPLITS = (8, 256)    # sequence shards: a node's model axis, (32, 8)
+SHARD_POS = [SHARD_C - 1, 400000]   # slot 1: the shards past it see no row
+SHARD_RTOL = 1e-5          # merged shards vs one call, f32 o: the same
+#                            partials merged in another grouping, relative
+#                            to the largest |o|
+SERVE_STEPS = 4            # decode steps of each phase 30 (b) leg
+# (arch, shape name, batch, cache rows): gemma3-1b at long_500k's own
+# shape; internlm2-1.8b at decode_32k cut to one data rank's share of
+# (32, 8): 128 / 32 = 4 slots
+SERVE_LEGS = (("gemma3-1b", "long_500k", 1, 524288),
+              ("internlm2-1.8b", "decode_32k", 4, 32768))
+PREFILL_LEG = ("gemma3-1b", "prefill_32k", 1, 32768)   # 32 / 32 data ranks
+
+
+def _shard_sweep(torch, da, q, k, v, pos, n, window=0, ring=False):
+    """Attend the ``n`` sequence shards of ``k`` / ``v`` with the kernel's
+    shard variant (f32 q) and merge them (``shard_ctx.merge_softmax``):
+    ``(merged o [B, 1, H, hd] f32, lse [B, H], per-shard (o, lse), shard
+    caches)``."""
+    from repro_torch.runtime import shard_ctx
+    B, C = k.shape[:2]
+    c = C // n
+    ks = [k[:, r * c:(r + 1) * c].contiguous() for r in range(n)]
+    vs = [v[:, r * c:(r + 1) * c].contiguous() for r in range(n)]
+    parts = [da.decode_attention_cuda(q, ks[r], vs[r], pos, offset=r * c,
+                                      total=C, return_lse=True, window=window,
+                                      ring=ring) for r in range(n)]
+    H, hd = q.shape[2], q.shape[3]
+    o, lse = shard_ctx.merge_softmax(
+        torch.stack([p[0].reshape(B, H, hd) for p in parts]),
+        torch.stack([p[1] for p in parts]))
+    return o[:, None], lse, parts, ks, vs
+
+
+def _check_shards(torch, da, name, q, k, v, pos, n, sample, window=0,
+                  ring=False):
+    """The merged shards against one whole-cache call (f32 q) within
+    ``SHARD_RTOL`` of its largest |o| (lse likewise); the ``sample``
+    shards against their plain version (``ATTN_F32_*``); shards past a
+    slot's window give lse -inf.  Returns the worst |merged - whole|."""
+    kw = dict(window=window, ring=ring)
+    C = k.shape[1]
+    whole, wlse = da.decode_attention_cuda(q, k, v, pos, offset=0, total=C,
+                                           return_lse=True, **kw)
+    # today's whole call (at G 10 over a bf16 cache the tensor-core kernel)
+    today = da.decode_attention_cuda(q, k, v, pos, **kw)
+    o, lse, parts, ks, vs = _shard_sweep(torch, da, q, k, v, pos, n, **kw)
+    torch.cuda.synchronize()
+    err = (o - whole).abs().max().item()
+    lerr = (lse - wlse).abs().max().item()
+    terr = (o - today).abs()
+    ok = (err <= SHARD_RTOL * whole.abs().max().item()
+          and lerr <= SHARD_RTOL * wlse.abs().max().item()
+          and bool((terr <= ATTN_F32_ATOL
+                    + ATTN_F32_RTOL * today.abs()).all())
+          and bool(torch.isfinite(o).all()))
+    c = C // n
+    perr = 0.0
+    for r in sample:
+        po, pl = da.decode_attention_plain(q, ks[r], vs[r], pos, offset=r * c,
+                                           total=C, return_lse=True, **kw)
+        d = (parts[r][0] - po).abs()
+        ok &= bool((d <= ATTN_F32_ATOL + ATTN_F32_RTOL * po.abs()).all())
+        fin = torch.isfinite(pl)
+        ok &= torch.equal(fin, torch.isfinite(parts[r][1]))
+        ok &= bool(((parts[r][1] - pl).abs()[fin]
+                    <= ATTN_F32_ATOL + ATTN_F32_RTOL * pl.abs()[fin]).all())
+        perr = max(perr, d.max().item())
+    empty = sum(bool(torch.isneginf(p[1]).any()) for p in parts)
+    print(f"decode_attention shards [{name}] {n} x {c} rows of C {C}, pos "
+          f"{pos.tolist()}: max|merged - whole| {err:.3g} (lse {lerr:.3g}; "
+          f"rtol {SHARD_RTOL} of the largest), vs the call without the "
+          f"variant {terr.max().item():.3g}, {empty} shards with a slot "
+          f"that sees no row, shards {list(sample)} vs plain max "
+          f"{perr:.3g} (rtol {ATTN_F32_RTOL} atol {ATTN_F32_ATOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode_attention shards [{name}] disagree")
+    return max(err, perr), parts, ks, vs
+
+
+def decode_shard_kernel(torch, da, results, card):
+    """Phase 30 (a): the decode kernel's shard variant at gemma3-1b's
+    global shape (G 4, KV 1, hd 256, bf16 cache of 524288 rows, 2 slots):
+    the whole-cache call with the log-sum-exp bitwise today's call, the
+    cache split into 8 and 256 shards and merged against one whole call,
+    a ring (gemma3-1b's local layers) and recurrentgemma-2b's G 10 ring
+    (whose shards run the shared body, the whole call the tensor-core
+    kernel); times of a shard call and the whole call beside the bound
+    and SDPA over the same rows."""
+    from repro_torch.models.layers import decode_valid
+    g = torch.Generator("cuda").manual_seed(30)
+    B, G, hd, C = 2, 4, 256, SHARD_C
+    q = torch.randn(B, 1, G, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, C, 1, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, C, 1, hd, generator=g, device="cuda").bfloat16()
+    pos = torch.tensor(SHARD_POS, dtype=torch.int32, device="cuda")
+    today = da.decode_attention_cuda(q, k, v, pos)
+    o, _ = da.decode_attention_cuda(q, k, v, pos, offset=0, total=C,
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    same = torch.equal(o, today)
+    print(f"decode_attention [G4 hd256 C{C}] whole-cache call with offset 0 "
+          f"and the log-sum-exp: o bitwise the call without them: {same}")
+    if not same:
+        raise AssertionError("the shard variant changed the whole call")
+    qf = q.float()
+    worst = 0.0
+    sweeps = {}
+    for n in SHARD_SPLITS:
+        c = C // n
+        sample = sorted({0, SHARD_POS[1] // c, n - 1})
+        err, parts, ks, vs = _check_shards(torch, da, f"G4 hd256 n{n}", qf,
+                                           k, v, pos, n, sample)
+        worst = max(worst, err)
+        sweeps[n] = (ks, vs)
+    rg = torch.Generator("cuda").manual_seed(31)
+    for name, G_, C_, n, pos_ in (("ring G4 hd256 C512", 4, 512, 8,
+                                   [1000, 300]),
+                                  ("ring G4 hd256 C512", 4, 512, 256,
+                                   [1000, 300]),
+                                  ("ring G10 hd256 C2048", 10, 2048, 8,
+                                   [5000, 700])):
+        qr = torch.randn(B, 1, G_, hd, generator=rg, device="cuda")
+        kr = torch.randn(B, C_, 1, hd, generator=rg, device="cuda").bfloat16()
+        vr = torch.randn(B, C_, 1, hd, generator=rg, device="cuda").bfloat16()
+        pr = torch.tensor(pos_, dtype=torch.int32, device="cuda")
+        err, *_ = _check_shards(torch, da, name, qr, kr, vr, pr, n,
+                                range(n) if n <= 8 else [0, 1, n - 1],
+                                window=C_, ring=True)
+        worst = max(worst, err)
+    # times: a shard call (the mean over a sweep of every shard, so the
+    # rows read exceed L2) and the whole call, each beside its bound
+    # (q, o and lse once, each slot's visible rows of K and V once) and
+    # SDPA over the same rows (no log-sum-exp)
+    H = G
+
+    def bound(offset, rows_c):
+        vis = decode_valid(pos, rows_c, offset=offset, total=C).sum().item()
+        nbytes = qf.nbytes + qf.nbytes + B * H * 4 + vis * hd * 2 * 2
+        return nbytes / HBM_BYTES_PER_S * 1e3, vis * H * hd * 4 / F32_FLOPS \
+            * 1e3
+
+    out = {}
+    for n, (ks, vs) in sweeps.items():
+        c = C // n
+        masks = [decode_valid(pos, c, offset=r * c, total=C)[:, None, None]
+                 for r in range(n)]
+        qt = q.transpose(1, 2)
+        fns = {"kernel": lambda i: da.decode_attention_cuda(
+                   qf, ks[i % n], vs[i % n], pos, offset=(i % n) * c,
+                   total=C, return_lse=True),
+               "sdpa": lambda i: torch.nn.functional.scaled_dot_product_attention(
+                   qt, ks[i % n].transpose(1, 2), vs[i % n].transpose(1, 2),
+                   attn_mask=masks[i % n], enable_gqa=True)}
+        if n == max(SHARD_SPLITS):
+            fns["plain"] = lambda i: da.decode_attention_plain(
+                qf, ks[i % n], vs[i % n], pos, offset=(i % n) * c, total=C,
+                return_lse=True)
+        ms = {key: graph_time_ms(f, iters=n, reps=3) for key, f in fns.items()}
+        tb = [bound(r * c, c) for r in range(n)]
+        t_bytes = sum(b for b, _ in tb) / n
+        t_ops = sum(o_ for _, o_ in tb) / n
+        out[n] = dict(ms=ms["kernel"], plain_ms=ms.get("plain"),
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      library_ms=ms["sdpa"])
+        print(f"decode_attention shard time [G4 hd256, {n} x {c} rows, B{B}, "
+              f"f32 q, pos {SHARD_POS}]: kernel {ms['kernel']:.4f} ms a call "
+              f"(graph replay, mean over the {n} shards), plain "
+              f"{'%.4f ms' % ms['plain'] if 'plain' in ms else 'not timed'}, "
+              f"SDPA "
+              f"{ms['sdpa']:.4f} ms, bound {out[n]['bound_ms']:.4f} ms "
+              f"({out[n]['bound_by']}) ({card})")
+    mask = decode_valid(pos, C)[:, None, None]
+    whole = {"kernel": graph_time_ms(lambda i: da.decode_attention_cuda(
+                 q, k, v, pos), iters=4, reps=3),
+             "sdpa": graph_time_ms(
+                 lambda i: torch.nn.functional.scaled_dot_product_attention(
+                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                     attn_mask=mask, enable_gqa=True), iters=4, reps=3)}
+    vis = decode_valid(pos, C).sum().item()
+    t_bytes = (2 * q.nbytes + vis * hd * 2 * 2) / HBM_BYTES_PER_S * 1e3
+    t_ops = vis * H * hd * 4 / F32_FLOPS * 1e3
+    print(f"decode_attention whole time [G4 hd256 C{C}, B{B}, bf16 q, pos "
+          f"{SHARD_POS}]: kernel {whole['kernel']:.4f} ms, SDPA "
+          f"{whole['sdpa']:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+          f"({card})")
+    r = results["decode_attention"]
+    r["shard_max_abs_err"] = worst
+    for n, d in out.items():
+        r.update({f"shard{n}_{key}": val for key, val in d.items()
+                  if val is not None})
+    r.update({f"whole{C}_ms": whole["kernel"],
+              f"whole{C}_bound_ms": max(t_bytes, t_ops),
+              f"whole{C}_library_ms": whole["sdpa"]})
+    del k, v, sweeps
+    torch.cuda.empty_cache()
+
+
+def _random_cache(torch, cache, g):
+    """Fill every leaf of a decode cache with normal draws (in place, one
+    layer row at a time)."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    for t in _flatten_with_names(cache)[1]:
+        for row in t:
+            row.copy_(torch.randn(row.shape, generator=g, device=t.device,
+                                  dtype=torch.float32).to(t.dtype))
+
+
+def peaked_query(torch, k, pos, H, per_head=4, score=20.0):
+    """A query [B, 1, H, hd] (f32) whose scaled scores are ``score`` at a
+    few rows of the cache ``k`` [B, C, KV, hd] and near 0 elsewhere: head
+    h aims at ``per_head`` rows of its KV head, the H * per_head rows
+    spread evenly over [0, pos[b]] (0 and pos[b] among them), and the
+    last head also at row pos[b] + 1, which the masks must reject (q is
+    the least-norm solution of q . k_row / sqrt(hd) = score).  Over a
+    random cache a near-uniform softmax leaves o close to 0, so a dropped
+    or misweighted k-block moves o little; here the aimed rows share most
+    of the weight and o is near the mean of their V rows, so losing a
+    k-block that holds one, or seeing row pos[b] + 1, moves o by a good
+    part of |V| / per_head."""
+    B, C, KV, hd = k.shape
+    G = H // KV
+    n = H * per_head
+    q = torch.zeros(B, 1, H, hd, device=k.device)
+    for b in range(B):
+        p = int(pos[b])
+        rows = [round(i * p / (n - 1)) for i in range(n)]
+        for h in range(H):
+            aim = rows[h::H] + ([p + 1] if h == H - 1 and p + 1 < C else [])
+            kt = k[b, aim, h // G].float()                      # [m, hd]
+            want = torch.full((len(aim), 1), score * hd ** 0.5,
+                              device=k.device)
+            q[b, 0, h] = (kt.T @ torch.linalg.solve(kt @ kt.T, want))[:, 0]
+    return q
+
+
+def _peaked_check(torch, da, cfg, cache, pos, label, card):
+    """Phase 30 (b)'s kernel check: ``decode_attention_cuda`` against
+    ``decode_attention_plain`` on the first global layer's cache of a
+    leg, at the leg's B, C, G, hd and dtypes (bf16 q, bf16 cache), with
+    ``peaked_query``'s query at the step's position: within
+    ``ATTN_BF16_ATOL``.  Returns max |kernel - plain|."""
+    from repro_torch.configs.base import BLOCK_GLOBAL_ATTN
+    k, v = next((st[f"pos{j}"]["k"][0], st[f"pos{j}"]["v"][0])
+                for (pattern, _), st in zip(cfg.stages(), cache["stages"])
+                for j, btype in enumerate(pattern)
+                if btype == BLOCK_GLOBAL_ATTN)
+    B, C, KV, hd = k.shape
+    pos_b = torch.full((B,), pos, dtype=torch.int32, device=k.device)
+    q = peaked_query(torch, k, pos_b, cfg.num_heads).bfloat16()
+    kw = dict(softcap=cfg.attn_softcap)
+    got = da.decode_attention_cuda(q, k, v, pos_b, **kw).float()
+    want = da.decode_attention_plain(q, k, v, pos_b, **kw).float()
+    err = (got - want).abs().max().item()
+    ok = err <= ATTN_BF16_ATOL and bool(torch.isfinite(got).all())
+    print(f"phase 30 (b) decode_attention [{label}: G {cfg.num_heads // KV}"
+          f" hd {hd} KV {KV}, {B} x {C} rows, bf16 q and cache, pos {pos}, "
+          f"peaked query] vs plain: max|diff| {err:.3g} (atol "
+          f"{ATTN_BF16_ATOL}; max|o| {want.abs().max().item():.3g}, mean|o| "
+          f"{want.abs().mean().item():.3g}) {'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"phase 30 (b) {label} decode_attention "
+                             f"disagrees with its plain version")
+    return err
+
+
+def serving_leg(torch, np, ops, da, arch, shape_name, B, S, card):
+    """Phase 30 (b), one leg: ``build_setup`` of ``arch``'s decode cell
+    (``B`` slots of ``S`` rows, random bf16 weights and cache) at world
+    size 1 over NCCL, ``SERVE_STEPS`` greedy steps with ``kernel`` from
+    position S - 8.  Gates: logits and the whole cache bitwise the
+    single-device ``decode_step`` fed the same tokens, logits within
+    ``LOGIT_BF16_TOL`` of ``full``, the decode-attention launches the
+    attention layers times the steps, no collective at world size 1;
+    then ``_peaked_check`` on the leg's cache.  Returns the setup's
+    decode-attention launches and the check's max |kernel - plain|."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime import shard_ctx
+    cfg = get_config(arch)
+    shape = ShapeConfig(shape_name, S, B, "decode")
+    setup = steps_lib.build_setup(cfg, shape, mesh_lib.make_host_mesh(),
+                                  attn_impl="kernel")
+    g = torch.Generator("cuda").manual_seed(30)
+    params = model_lib.init_params(cfg, generator=g, device="cuda",
+                                   dtype=torch.bfloat16)
+    cache = model_lib.init_cache(cfg, B, S, torch.bfloat16, device="cuda")
+    _random_cache(torch, cache, g)
+    token = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                          device="cuda", dtype=torch.int32)
+    p0 = S - 8
+    # the rows the steps write in each K/V leaf (a ring leaf: its slots)
+    leaves = _flatten_with_names(cache)[1]
+    rows = [[(p0 + i) % t.shape[2] for i in range(SERVE_STEPS)]
+            for t in leaves]
+    saved = [t[:, :, r].clone() for t, r in zip(leaves, rows)]
+    local = list(setup.shard((params, cache, token, torch.tensor(
+        p0, dtype=torch.int32, device="cuda"))))
+    ops.reset_launches()
+    shard_ctx.reset_collectives()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fed, got, host_ms, dev_ms = [token], [], [], []
+    for i in range(SERVE_STEPS):
+        local[2] = fed[-1]
+        local[3] = torch.tensor(p0 + i, dtype=torch.int32, device="cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        h0 = time.monotonic()
+        ev[0].record()
+        logits, local[1] = setup(*local)
+        ev[1].record()
+        torch.cuda.synchronize()
+        host_ms.append((time.monotonic() - h0) * 1e3)
+        dev_ms.append(ev[0].elapsed_time(ev[1]))
+        got.append(logits)
+        fed.append(logits.argmax(-1)[:, None].int())
+    launches = ops.LAUNCHES["decode_attention"]
+    counts = {k: list(v) for k, v in shard_ctx.COLLECTIVES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    attn = sum(t in ("global", "local") for t in cfg.layer_types())
+    with torch.no_grad():
+        ref = [model_lib.decode_step(params, cfg, cache, fed[i],
+                                     p0 + i, attn_impl="kernel")[0]
+               for i in range(SERVE_STEPS)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref)) and all(
+            torch.equal(a, b) for a, b in zip(
+                _flatten_with_names(local[1])[1],
+                _flatten_with_names(cache)[1]))
+        for t, r, old in zip(leaves, rows, saved):
+            t[:, :, r] = old
+        full = [model_lib.decode_step(params, cfg, cache, fed[i], p0 + i,
+                                      attn_impl="full")[0].float()
+                for i in range(SERVE_STEPS)]
+    diff = max((a.float() - b).abs().max().item() for a, b in zip(got, full))
+    scale = max(b.abs().max().item() for b in full)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    ok = (bitwise and finite and diff <= LOGIT_BF16_TOL
+          and launches == attn * SERVE_STEPS
+          and not any(k.startswith("decode/") for k in counts))
+    print(f"phase 30 (b) decode setup ({arch}, full width and depth, "
+          f"{shape_name}: {B} x {S} rows, bf16, mesh (1, 1) NCCL, kernel): "
+          f"{SERVE_STEPS} greedy steps from pos {p0}: logits and the whole "
+          f"cache bitwise the single-device decode_step: {bitwise}; "
+          f"max|logit kernel - full| {diff:.4f} (tol {LOGIT_BF16_TOL}; "
+          f"max|logit| {scale:.3g}); decode_attention launches {launches} "
+          f"(want {attn} layers x {SERVE_STEPS}); collectives {counts}; "
+          f"step ms host {[round(x, 2) for x in host_ms]} (p50 "
+          f"{np.percentile(host_ms, 50):.2f}), CUDA events "
+          f"{[round(x, 2) for x in dev_ms]} (p50 "
+          f"{np.percentile(dev_ms, 50):.2f}); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB {'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError(f"phase 30 (b) {arch} decode setup failed")
+    with torch.no_grad():
+        err = _peaked_check(torch, da, cfg, cache, p0 + SERVE_STEPS - 1,
+                            f"{arch} {shape_name}", card)
+    del setup, params, cache, local, leaves, saved
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def prefill_leg(torch, card):
+    """Phase 30 (c): ``build_setup`` of gemma3-1b's prefill cell cut to
+    one data rank's share (1 x 32768) at world size 1: logits and the
+    returned cache bitwise the single-device ``prefill``; wall time and
+    peak memory."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as model_lib
+    arch, shape_name, B, S = PREFILL_LEG
+    cfg = get_config(arch)
+    setup = steps_lib.build_setup(cfg, ShapeConfig(shape_name, S, B,
+                                                   "prefill"),
+                                  mesh_lib.make_host_mesh())
+    g = torch.Generator("cuda").manual_seed(32)
+    params = model_lib.init_params(cfg, generator=g, device="cuda",
+                                   dtype=torch.bfloat16)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    local = setup.shard((params, batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    logits, cache = setup(*local)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        rl, rc = model_lib.prefill(params, cfg, batch)
+    bitwise = torch.equal(logits, rl) and all(
+        torch.equal(a, b) for a, b in zip(_flatten_with_names(cache)[1],
+                                          _flatten_with_names(rc)[1]))
+    finite = bool(torch.isfinite(logits).all())
+    print(f"phase 30 (c) prefill setup ({arch}, full width and depth, "
+          f"{shape_name} cut to {B} x {S}, bf16, chunked attention, mesh "
+          f"(1, 1) NCCL): logits and the returned cache bitwise the "
+          f"single-device prefill: {bitwise}; wall {wall:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB {'ok' if bitwise and finite else 'FAIL'}"
+          f" ({card})")
+    if not (bitwise and finite):
+        raise AssertionError("phase 30 (c) prefill setup differs")
+    del setup, params, local, logits, cache, rl, rc
+    torch.cuda.empty_cache()
+
+
+def sharded_serving(torch, np, ops, da, results, card):
+    """Phase 30: (a) the decode kernel's shard variant, (b) the decode
+    setups at full width and depth, (c) the prefill setup.  Returns the
+    decode-attention launches of (b)."""
+    t0 = time.monotonic()
+    decode_shard_kernel(torch, da, results, card)
+    ta = time.monotonic()
+    launches, worst = 0, 0.0
+    with world_of_one():
+        for arch, shape_name, B, S in SERVE_LEGS:
+            n, err = serving_leg(torch, np, ops, da, arch, shape_name, B, S,
+                                 card)
+            launches += n
+            worst = max(worst, err)
+        tb = time.monotonic()
+        prefill_leg(torch, card)
+    results["decode_attention"]["phase30_setup_max_abs_err"] = worst
+    print(f"phase 30: {time.monotonic() - t0:.1f} s ((a) {ta - t0:.1f}, (b) "
+          f"{tb - ta:.1f}, (c) {time.monotonic() - tb:.1f})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5626,6 +6089,14 @@ def main() -> int:
     # single-device step; the int8 error-feedback all-reduce
     dist_adam = distributed_train(torch, np, ops, card)
 
+    # phase 30: the sharded serving setups: the decode kernel's shard
+    # variant against one whole-cache call, the decode setups of
+    # gemma3-1b (long_500k) and internlm2-1.8b (decode_32k, one data
+    # rank's share) and gemma3-1b's prefill setup at world size 1 over
+    # NCCL, bitwise the single-device steps
+    serve_setup_launches = sharded_serving(torch, np, ops, da, results, card)
+    results["decode_attention"]["phase30_launches"] = serve_setup_launches
+
     # summary: launches are each kernel's count on its path's run:
     # serving main path, training main path (Q8), the f32 API run, the
     # paged serving main path; the swap and the f32 masked Adam add the
@@ -5635,7 +6106,8 @@ def main() -> int:
     # both decode kernels' counts
     launches = {"decode_attention": (launches["decode_attention"]
                                      + results["decode_attention"][
-                                         "zoo_launches"]),
+                                         "zoo_launches"]
+                                     + serve_setup_launches),
                 "scatter_swap": (launches["scatter_swap"]
                                  + x_serve["scatter_swap"] + w_swaps
                                  + p_swaps + zoo_swaps),
@@ -5652,8 +6124,9 @@ def main() -> int:
                 "rglru_scan_bwd": rg_launches["rglru_scan_bwd"],
                 "flash_attention": fa_launches["flash_attention"]}
     zoo_names = ", ".join(ZOO_ARCHS)
-    path_of = {"decode_attention": f"serving main path and the {zoo_names} "
-                                   f"serving runs",
+    path_of = {"decode_attention": f"serving main path, the {zoo_names} "
+                                   f"serving runs and the phase 30 decode "
+                                   f"setups",
                "scatter_swap": f"serving main path, the {XLSTM_ARCH} "
                                f"serving run, the {WHISPER_ARCH} and "
                                f"{PIXTRAL_ARCH} applies and the gemma-2b "

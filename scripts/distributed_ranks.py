@@ -26,23 +26,18 @@ Imports nothing of the JAX package.
 """
 from __future__ import annotations
 
-import argparse
 import json
-import os
-import subprocess
 import sys
-import tempfile
 import time
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+import _ranks
 
 
 def rank_main(args) -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
+    rank, world, dev = _ranks.start_rank(args, "masked_adam")
     from repro_torch.checkpoint.checkpointer import _flatten_with_names
     from repro_torch.configs.base import get_config, reduce_config
     from repro_torch.configs.shapes import ShapeConfig
@@ -51,21 +46,6 @@ def rank_main(args) -> int:
     from repro_torch.launch import steps
     from repro_torch.optim.adam import Adam
     from repro_torch.runtime import shard_ctx
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    dist.init_process_group(mesh_lib.BACKENDS[args.device],
-                            init_method=f"file://{args.rdv}", rank=rank,
-                            world_size=world)
-    dev = (torch.device("cuda", rank % torch.cuda.device_count())
-           if args.device == "cuda" else torch.device("cpu"))
-    if dev.type == "cuda":
-        from repro_torch.kernels import build
-        build.library("masked_adam")          # not inside the timed step
-        if rank == 0:
-            print(subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], capture_output=True,
-                text=True).stdout.strip())
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduce_config(cfg, args.reduce)
@@ -135,18 +115,15 @@ def rank_main(args) -> int:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap = _ranks.parser()
     ap.add_argument("--ranks", type=int, default=0,
                     help="rank processes (default: every card)")
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--reduce", type=int, default=0)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--rdv", default="")
-    ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
-    if os.environ.get("RANK") is not None:
+    if _ranks.is_rank():
         return rank_main(args)
     if args.device == "cuda":
         import torch
@@ -160,28 +137,7 @@ def main(argv=None) -> int:
         print(f"distributed_ranks: {n} ranks do not make a model axis of 2",
               file=sys.stderr)
         return 2
-    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
-        argv = [a for a in (argv or sys.argv[1:])]
-        cmd = [sys.executable, str(Path(__file__).resolve()), *argv,
-               "--rdv", os.path.join(tmp, "store")]
-        procs = [subprocess.Popen(cmd, env=dict(os.environ, RANK=str(r),
-                                                WORLD_SIZE=str(n)))
-                 for r in range(n)]
-        deadline = time.monotonic() + args.timeout
-        try:
-            for p in procs:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            print("distributed_ranks: time limit", file=sys.stderr)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    rcs = [p.returncode for p in procs]
-    print(f"distributed_ranks: {n} ranks, exit codes {rcs}")
-    return 0 if all(rc == 0 for rc in rcs) else 1
-
+    return _ranks.launch(__file__, n, argv or sys.argv[1:], args.timeout)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -80,7 +80,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     n = ctypes.c_longlong
     if name == "decode_attention":
         fns = [(lib.decode_attention_launch,
-                [p] * 7 + [i] * 9 + [f, f, i, p])]
+                [p] * 8 + [i] * 11 + [f, f, i, p])]
     elif name == "paged_decode_attention":
         fns = [(lib.paged_decode_attention_launch,
                 [p] * 11 + [i] * 9 + [f, f, i, p])]

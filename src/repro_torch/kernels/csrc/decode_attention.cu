@@ -25,19 +25,27 @@
 // cudaError_t of the launches.  Allocates nothing: `ws` is an f32 workspace
 // of B * KV * ceil(C / min(block_k, C)) * partial_floats(G, hd) floats;
 // `counters` holds at least B * KV int32 arrival counts, zero before the
-// launch and zero after it.  Runs on `stream`.
+// launch and zero after it.  Runs on `stream`.  The shard variant: the
+// cache [B, C, KV, hd] holds rows offset .. offset + C of a cache of Ct
+// rows, and a non-null `lse` [B, H] f32 receives each head's log-sum-exp
+// (offset 0, Ct = C and a null lse: the whole-cache call).  G = 10 shards
+// run the shared body on the CUDA cores.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const int32_t* pos, void* o,
-    float* ws, int32_t* counters, int B, int C, int KV, int G, int hd,
-    int q_bf16, int kv_bf16, int window, int ring, float softcap, float scale,
-    int block_k, void* stream) {
+    float* ws, int32_t* counters, float* lse, int B, int C, int KV, int G,
+    int hd, int q_bf16, int kv_bf16, int window, int ring, int offset, int Ct,
+    float softcap, float scale, int block_k, void* stream) {
+  if (offset < 0 || Ct < C || offset > Ct - C) return -1;
   decode_attn::Args a{};
   a.q = q; a.k = k; a.v = v; a.pos = pos; a.o = o; a.ws = ws;
   a.counters = counters;
   a.B = B; a.C = C; a.KV = KV; a.window = window; a.ring = ring;
   a.softcap = softcap; a.scale = scale; a.block_k = block_k;
+  a.offset = offset; a.Ct = Ct; a.lse = lse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G == decode_attn_mma::kG && hd == decode_attn_mma::kHD && kv_bf16)
+  const bool shard = offset != 0 || Ct != C || lse != nullptr;
+  if (G == decode_attn_mma::kG && hd == decode_attn_mma::kHD && kv_bf16 &&
+      !shard)
     return q_bf16 ? decode_attn_mma::launch_g10<__nv_bfloat16>(a, s)
                   : decode_attn_mma::launch_g10<float>(a, s);
   return decode_attn::dispatch<false>(a, G, hd, q_bf16, kv_bf16, s);

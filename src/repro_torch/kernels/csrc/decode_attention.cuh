@@ -70,6 +70,13 @@
 //    `decode_attention_merge`), reading them past L1, writes o and resets
 //    the counter to 0, so the result does not depend on arrival order and
 //    the next launch (or graph replay) finds the counters zeroed.
+//
+// The shard variant (dense only): the cache holds rows offset .. offset + C
+// of a cache of Ct rows, whose masks (causal, window, ring) the rows keep;
+// with `lse` set, each head's log-sum-exp of its scores over the shard goes
+// beside o (-inf, and o = 0, for a shard with no visible row), for a softmax
+// merge across shards.  With offset 0, Ct = C and no lse the arithmetic and
+// the writes are the whole-cache call's.
 // Known limits: the grid has a block for every k-block of C, and blocks
 // past a slot's pos take SM slots until they have read pos, so at short
 // contexts in a large C the late k-blocks of a long slot start late; the
@@ -125,6 +132,10 @@ struct Args {
   int smem_region;          // bytes of shared memory before the page table
   int smem_q;               // offset of q's bf16 pieces (tensor-core path)
   int smem_rows;            // offset of the stages' row tables
+  // the shard variant (dense only; the entries set Ct = C otherwise)
+  int offset;               // the shard's first row in the whole cache
+  int Ct;                   // rows of the whole cache (the masks')
+  float* lse;               // [B, H] f32 log-sum-exp per head, or null
 };
 
 // Floats of one k-block partial: G * hd accumulators, then G maxima and G
@@ -197,6 +208,23 @@ __device__ __forceinline__ void bounds(int p, int C, int window, int ring,
                                        int bk, int* lo, int* hi) {
   *hi = (p < C - 1 ? p : C - 1) / bk;
   *lo = (window && !ring) ? (p - window + 1 > 0 ? p - window + 1 : 0) / bk : 0;
+}
+
+// The same over a shard of C rows from row `offset` of a cache of Ct rows:
+// the shard's own k-blocks, [0, 0] for a shard with no visible row (whose
+// rows the masks then reject).  With offset 0 and Ct = C, `bounds`.
+__device__ __forceinline__ void shard_bounds(int p, int C, int Ct, int offset,
+                                             int window, int ring, int bk,
+                                             int* lo, int* hi) {
+  const int hr = (p < Ct - 1 ? p : Ct - 1) - offset;
+  const int lr = ((window && !ring) ? (p - window + 1 > 0 ? p - window + 1 : 0)
+                                    : 0) - offset;
+  if (hr < 0 || lr > C - 1) {
+    *lo = *hi = 0;
+    return;
+  }
+  *hi = (hr < C - 1 ? hr : C - 1) / bk;
+  *lo = (lr > 0 ? lr : 0) / bk;
 }
 
 // How a K/V row of HD elements of T is cut: 16-byte chunks, kLPR lanes a
@@ -303,14 +331,21 @@ decode_attention_kernel(const Args a) {
     for (int t = tid; t < npg; t += kThreads)
       s_tbl[t] = __ldg(a.tbl + (int64_t)b * a.NP + pg0 + t);
   }
+  // the shard variant is dense only: the paged kernel keeps the whole
+  // cache's constants (and its registers)
+  const int off = PAGED ? 0 : a.offset;
+  const int Ct = PAGED ? C : a.Ct;
   int lo, hi;
-  bounds(p, C, a.window, a.ring, bk, &lo, &hi);
+  if constexpr (PAGED)
+    bounds(p, C, a.window, a.ring, bk, &lo, &hi);
+  else
+    shard_bounds(p, C, Ct, off, a.window, a.ring, bk, &lo, &hi);
   if (j < lo || j > hi) return;       // outside this slot's range
   if constexpr (PAGED) __syncthreads();
   const bool splice = PAGED && a.active[b] != 0;
 
   // rows past pos are never visible outside a ring: the stages stop there
-  const int row_stop = a.ring ? row_end : min(row_end, p + 1);
+  const int row_stop = a.ring ? row_end : min(row_end, p - off + 1);
   const int SR = stage_rows(bk, R::kCap);
   const int SR16 = slot_rows(bk, R::kCap);
   const int nst = (row_stop - row_begin + SR - 1) / SR;
@@ -322,7 +357,8 @@ decode_attention_kernel(const Args a) {
   const TKV* nkg = PAGED ? static_cast<const TKV*>(a.new_k) + new_off : kg;
   const TKV* nvg = PAGED ? static_cast<const TKV*>(a.new_v) + new_off : vg;
   auto row_ok = [&](int local, int r) {
-    return local < SR && r < row_stop && visible(r, p, C, a.window, a.ring);
+    return local < SR && r < row_stop &&
+           visible(off + r, p, Ct, a.window, a.ring);
   };
   // rows of stage s that are read: up to row_stop, in whole 16-row steps
   // on the tensor-core path (whose masked rows must then be zeros)
@@ -730,6 +766,9 @@ decode_attention_kernel(const Args a) {
       const float den = fmaf(bden[i], c, 0.f);
       const float sum = fmaf(bacc[i], c, 0.f);
       out[t] = from_f<TQ>(sum / fmaxf(den, 1e-30f));
+      if constexpr (!PAGED)
+        if (a.lse && t % HD == 0)
+          a.lse[(int64_t)b * H + (int64_t)h * G + t / HD] = ms + logf(den);
     }
     return;
   }
@@ -821,6 +860,10 @@ decode_attention_kernel(const Args a) {
     if (t >= G * HD) break;
     out[t] = from_f<TQ>(msum[i] / fmaxf(s_den[t / HD], 1e-30f));
   }
+  if constexpr (!PAGED)
+    if (a.lse && tid < G)
+      a.lse[(int64_t)b * H + (int64_t)h * G + tid] =
+          s_ms[tid] + logf(s_den[tid]);
   if (tid == 0) a.counters[b * a.KV + h] = 0;   // every block has arrived
 }
 

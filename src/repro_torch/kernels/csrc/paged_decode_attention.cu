@@ -47,6 +47,7 @@ extern "C" int paged_decode_attention_launch(
   a.softcap = softcap; a.scale = scale; a.block_k = block_k;
   a.tbl = page_table; a.active = active; a.new_k = new_k; a.new_v = new_v;
   a.NP = NP; a.ps = ps;
+  a.offset = 0; a.Ct = NP * ps; a.lse = nullptr;
   return decode_attn::dispatch<true>(a, G, hd, q_bf16, kv_bf16,
                                      static_cast<cudaStream_t>(stream));
 }

@@ -93,26 +93,36 @@ def arrival_counters(name, device, n):
     return buf
 
 
-def block_bounds(pos, *, seq_len, window=0, ring=False, block_k=128):
-    """Per-slot [lo, hi] k-block range a decode step must read."""
+def block_bounds(pos, *, seq_len, window=0, ring=False, block_k=128,
+                 offset=0, total=None):
+    """Per-slot [lo, hi] k-block range a decode step must read.  Over a
+    shard of a longer cache (rows ``offset ..`` of ``total``), the range
+    of the shard's own k-blocks; a shard with no visible row gets [0, 0],
+    whose rows the masks then reject."""
     pos = torch.as_tensor(pos, dtype=torch.int32)
     bk = min(block_k, seq_len)
-    hi = torch.div(pos.clamp(max=seq_len - 1), bk, rounding_mode="floor")
+    T = seq_len if total is None else total
+    hi_row = pos.clamp(max=T - 1) - offset
     if window and not ring:
-        lo = torch.div((pos - window + 1).clamp(min=0), bk,
-                       rounding_mode="floor")
+        lo_row = (pos - window + 1).clamp(min=0) - offset
     else:
         # ring: early steps only fill slots [0, pos]; after the wrap the
         # whole C = min(window, max_seq) buffer is the window
-        lo = torch.zeros_like(hi)
-    return lo, hi
+        lo_row = torch.full_like(pos, -offset)
+    empty = (hi_row < 0) | (lo_row > seq_len - 1)
+    hi = torch.div(hi_row.clamp(max=seq_len - 1), bk, rounding_mode="floor")
+    lo = torch.div(lo_row.clamp(min=0), bk, rounding_mode="floor")
+    zero = torch.zeros_like(hi)
+    return torch.where(empty, zero, lo), torch.where(empty, zero, hi)
 
 
 def cache_read_bytes(pos, *, seq_len, kv_heads, head_dim, window=0,
-                     ring=False, block_k=128, dtype_bytes=2):
-    """K+V bytes one fused decode step reads at ``pos`` (every slot)."""
+                     ring=False, block_k=128, dtype_bytes=2, offset=0,
+                     total=None):
+    """K+V bytes one fused decode step reads at ``pos`` (every slot); over
+    a shard, the shard's own k-blocks."""
     lo, hi = block_bounds(pos, seq_len=seq_len, window=window, ring=ring,
-                          block_k=block_k)
+                          block_k=block_k, offset=offset, total=total)
     bk = min(block_k, seq_len)
     per_block = 2 * bk * kv_heads * head_dim * dtype_bytes   # k + v tiles
     return int(torch.sum(hi - lo + 1)) * per_block
@@ -138,10 +148,18 @@ def _pos_vector(pos, B, device):
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0, ring=False,
-                           softcap=0.0, scale=None, block_k=128):
+                           softcap=0.0, scale=None, block_k=128, offset=0,
+                           total=None, return_lse=False):
     """Plain PyTorch version of the kernel: the same blockwise f32 online
     softmax, block by block over ``block_k`` rows, each slot restricted
-    to its ``block_bounds`` range.  Returns o [B, 1, H, hd] in q's dtype."""
+    to its ``block_bounds`` range.  Returns o [B, 1, H, hd] in q's dtype.
+
+    The shard variant: ``k_cache`` / ``v_cache`` hold rows ``offset ..``
+    of a cache of ``total`` rows (the masks are the whole cache's), and
+    ``return_lse`` returns ``(o, lse)`` with lse [B, H] f32, each head's
+    log-sum-exp of its scores over the shard (-inf, and o = 0, where no
+    row of the shard is visible).  With ``offset`` 0 over the whole
+    cache the arithmetic is the call without them."""
     B, C, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -149,12 +167,13 @@ def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0, ring=False,
     bk = min(block_k, C)
     pos_b = _pos_vector(pos, B, q.device)
     lo, hi = block_bounds(pos_b, seq_len=C, window=window, ring=ring,
-                          block_k=bk)
+                          block_k=bk, offset=offset, total=total)
     qg = q.reshape(B, KV, G, hd).float()
     m = torch.full((B, KV, G), -math.inf, device=q.device)
     den = torch.zeros((B, KV, G), device=q.device)
     acc = torch.zeros((B, KV, G, hd), device=q.device)
-    valid = decode_valid(pos_b, C, window=window, ring=ring)      # [B, C]
+    valid = decode_valid(pos_b, C, window=window, ring=ring, offset=offset,
+                         total=total)                             # [B, C]
     for j in range((C + bk - 1) // bk):
         rows = slice(j * bk, min((j + 1) * bk, C))
         kb = k_cache[:, rows].float()                             # [B,bk,KV,hd]
@@ -173,14 +192,21 @@ def decode_attention_plain(q, k_cache, v_cache, pos, *, window=0, ring=False,
         acc = acc * corr[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vb)
         m = m_new
     o = acc / den.clamp(min=1e-30)[..., None]
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    o = o.reshape(B, 1, H, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (m.clamp(min=-1e30) + torch.log(den)).reshape(B, H)
 
 
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0, ring=False,
-                          softcap=0.0, scale=None, block_k=128):
+                          softcap=0.0, scale=None, block_k=128, offset=0,
+                          total=None, return_lse=False):
     """Launch the Hopper kernel (``csrc/decode_attention.cu``), one launch
     a call.  Raises on anything it does not take; allocates the output and
-    the kernel's f32 workspace of per-k-block partials."""
+    the kernel's f32 workspace of per-k-block partials.  ``offset``,
+    ``total`` and ``return_lse``: the shard variant, as
+    ``decode_attention_plain`` (G = 10 shards run the shared body on the
+    CUDA cores, not the tensor-core kernel of the whole-cache call)."""
     if not (q.is_cuda and k_cache.is_cuda and v_cache.is_cuda):
         raise ValueError("decode_attention_cuda needs CUDA tensors")
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4:
@@ -212,9 +238,15 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0, ring=False,
     if B > 65535 or KV > 65535 or -(-C // max(1, min(block_k, C))) > 65535 \
             or block_k < 1:
         raise ValueError("grid or block_k out of range")
+    T = C if total is None else int(total)
+    if offset < 0 or offset + C > T:
+        raise ValueError(f"shard rows [{offset}, {offset + C}) outside a "
+                         f"cache of {T} rows")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     pos_b = _pos_vector(pos, B, q.device).contiguous()
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ws = torch.empty(workspace_floats(B, KV, C, G, hd, block_k),
                      dtype=torch.float32, device=q.device)
     cnt = arrival_counters("decode_attention", q.device, B * KV)
@@ -222,14 +254,15 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0, ring=False,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_b.data_ptr(), o.data_ptr(), ws.data_ptr(), cnt.data_ptr(), B, C,
-        KV, G, hd,
+        pos_b.data_ptr(), o.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+        0 if lse is None else lse.data_ptr(), B, C, KV, G, hd,
         int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
-        int(window), int(bool(ring)), ctypes.c_float(softcap),
-        ctypes.c_float(scale), int(block_k), ctypes.c_void_p(stream))
+        int(window), int(bool(ring)), int(offset), T,
+        ctypes.c_float(softcap), ctypes.c_float(scale), int(block_k),
+        ctypes.c_void_p(stream))
     build.check("decode_attention", rc)
     build.LAUNCHES["decode_attention"] += 1
-    return o
+    return o if lse is None else (o, lse)
 
 
 # --------------------------------------------------------------------- #

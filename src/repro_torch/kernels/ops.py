@@ -132,20 +132,26 @@ def _profiled_call(op, fn, args, kwargs, nbytes, device):
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, ring=False,
-                     softcap=0.0, mode: str = "auto", block_k: int = 128):
+                     softcap=0.0, mode: str = "auto", block_k: int = 128,
+                     offset: int = 0, total=None, return_lse: bool = False):
     """One-token attention against a slot-batched KV cache.
 
     q [B, 1, H, hd]; caches [B, C, KV, hd]; pos [B] int32.  The kernel's
-    cache reads scale with ``pos`` (see kernels/decode_attention.py)."""
+    cache reads scale with ``pos`` (see kernels/decode_attention.py).
+    The shard variant: the caches hold rows ``offset ..`` of a cache of
+    ``total`` rows, and ``return_lse`` returns ``(o, lse [B, H] f32)``
+    for a softmax merge across shards."""
     fn = (da.decode_attention_cuda if route(mode, q) == "kernel"
           else da.decode_attention_plain)
-    kw = dict(window=window, ring=ring, softcap=softcap, block_k=block_k)
+    kw = dict(window=window, ring=ring, softcap=softcap, block_k=block_k,
+              offset=offset, total=total, return_lse=return_lse)
     if _PROFILER is None:
         return fn(q, k_cache, v_cache, pos, **kw)
     nb = 2 * q.nbytes + da.cache_read_bytes(
         pos.cpu(), seq_len=k_cache.shape[1], kv_heads=k_cache.shape[2],
         head_dim=k_cache.shape[3], window=window, ring=ring,
-        block_k=block_k, dtype_bytes=k_cache.element_size())
+        block_k=block_k, dtype_bytes=k_cache.element_size(), offset=offset,
+        total=total)
     return _profiled_call("decode_attention", fn, (q, k_cache, v_cache, pos),
                           kw, nb, q.device)
 

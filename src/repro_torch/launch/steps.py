@@ -15,6 +15,13 @@ the setup runs ``fn`` on the local shards under ``shard_ctx.use(rules)``
 (the model's collectives and the gradient hook act there), and
 ``gather`` puts outputs back together (for tests).  Every rank holds
 the full concrete arguments (drawn from one seed) and keeps its slice.
+
+The serving builders: ``build_decode_setup`` lays the cache out as
+``sharding.cache_specs`` says (the rules carry the specs, and the
+model's decode step runs on the local shards: ``models.model``'s
+"Sharded decode") and donates it; ``build_prefill_setup`` returns the
+cache it fills in that same layout (``reshard`` from the batch shards
+the prefill computes).
 """
 from __future__ import annotations
 
@@ -57,6 +64,41 @@ def _rules_for(mesh, cfg=None, tp_leaves=frozenset()) -> shard_ctx.ShardRules:
         dp_all = dp + (sharding.TP,)
         return shard_ctx.ShardRules(mesh=mesh, dp_axes=dp_all)
     return shard_ctx.ShardRules(mesh=mesh, dp_axes=dp, tp_leaves=tp_leaves)
+
+
+def reshard(t: torch.Tensor, src: P, dst: P, rules,
+            kind: str = "prefill/all_gather") -> torch.Tensor:
+    """This rank's shard of a tensor in layout ``dst`` from its shard in
+    layout ``src``: the dims only ``src`` splits are all-gathered, then
+    the dims only ``dst`` splits are cut (a dim both split must split
+    over the same axes)."""
+    nd = t.dim()
+    pad = (None,) * nd
+    src, dst = tuple(src) + pad[len(src):], tuple(dst) + pad[len(dst):]
+    cut = [None] * nd
+    for d in range(nd):
+        s, t_ = rules.split_axes(src[d]), rules.split_axes(dst[d])
+        if s == t_:
+            continue
+        if s and t_:
+            raise NotImplementedError(f"dim {d}: split over {s}, wanted "
+                                      f"over {t_}")
+        if s:
+            t = shard_ctx.all_gather(t.movedim(d, 0).contiguous(), s,
+                                     kind).movedim(0, d)
+        else:
+            cut[d] = t_
+    if any(cut):
+        t = local_slice(t, Layout.of(P(*cut), rules.mesh), rules)
+    return t
+
+
+def reshard_tree(tree, src, dst, rules, kind: str = "prefill/all_gather"):
+    """``reshard`` over every leaf of ``tree`` (spec trees alike)."""
+    _, leaves, td = _flatten_with_names(tree)
+    s, d = _flatten_with_names(src)[1], _flatten_with_names(dst)[1]
+    return td.unflatten([reshard(t, a, b, rules, kind).contiguous()
+                         for t, a, b in zip(leaves, s, d)])
 
 
 def _zero_extend(spec: P, shape, mesh, dp) -> P:
@@ -159,7 +201,8 @@ class StepSetup:
     rules: shard_ctx.ShardRules
     roles: Tuple = ()      # per arg: its state_spec sharding role
     donate: Tuple = ()     # args the step updates in place
-    out_args: Tuple = ()   # per output: the arg whose layout it has
+    out_args: Tuple = ()   # per output: the arg whose layout it has, or
+    #                        a tree of Layouts of its own (None: whole)
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # -- local slices ------------------------------------------------- #
@@ -247,7 +290,7 @@ class StepSetup:
         each output's layout; None: replicated, returned as it is)."""
         full = []
         for out, i in zip(outputs, self.out_args):
-            lay = None if i is None else self.in_shardings[i]
+            lay = self.in_shardings[i] if isinstance(i, int) else i
             if lay is None or out is None:
                 full.append(out)
                 continue
@@ -302,11 +345,121 @@ def build_train_setup(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
               **low.meta})
 
 
+def _layout_tree(specs, mesh):
+    return sharding.map_with_keys(lambda keys, spec: Layout.of(spec, mesh),
+                                  specs)
+
+
+def _logits_layout(cfg, p_specs, batch_entry, mesh) -> Layout:
+    """The layout of [B, vocab] logits: the batch as the tokens', the
+    vocab as the output head's (the model axis where it splits it)."""
+    head = p_specs["embed"] if cfg.tie_embeddings else p_specs["head"]
+    return Layout.of(P(batch_entry, head[0] if cfg.tie_embeddings
+                       else head[1]), mesh)
+
+
+def _serving_parts(cfg, shape, mesh, param_dtype):
+    """The parameters, rules, parameter specs and decode-cache specs of a
+    serving cell (the cache laid out as ``sharding.cache_specs`` says,
+    over the rules' data axes)."""
+    check_tensor_parallel(cfg, mesh)
+    params = specs_lib.params_abstract(cfg, dtype=param_dtype)
+    rules = _rules_for(mesh, cfg, _tp_leaves(cfg, params, mesh))
+    cache = specs_lib.cache_specs_abstract(cfg, shape, dtype=param_dtype)
+    c_specs = sharding.cache_specs(cfg, cache, mesh, rules.dp_axes)
+    return params, rules, sharding.param_specs(cfg, params, mesh), cache, \
+        c_specs
+
+
+def build_prefill_setup(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                        attn_impl: str = "chunked",
+                        param_dtype=torch.bfloat16) -> StepSetup:
+    """Whole-sequence prefill (JAX's ``build_prefill_setup``): ``(params,
+    batch) -> (logits [B, vocab] at the last position, cache)``, the
+    batch over the data axes, the returned cache in the layout
+    ``sharding.cache_specs`` gives the decode cache (``out_args``)."""
+    params, rules, p_specs, _, c_specs = _serving_parts(cfg, shape, mesh,
+                                                        param_dtype)
+    batch = specs_lib.input_specs(cfg, shape, dtype=param_dtype)
+    b_specs = sharding.batch_specs(shape.kind, batch, mesh, rules.dp_axes)
+    b_entry = b_specs["tokens"][0]
+    kv_split = (rules.tp_size > 1 and cfg.num_kv_heads % rules.tp_size == 0)
+
+    def computed(keys, spec):
+        """The layout the prefill computes a cache leaf in: the batch as
+        the tokens', a stage's K/V heads over the model axis where the
+        projections split them."""
+        out = [None] * len(spec)
+        out[1] = b_entry
+        if keys[0] == "stages" and keys[-1] in ("k", "v") and kv_split:
+            out[3] = sharding.TP
+        return P(*out)
+
+    src = sharding.map_with_keys(computed, c_specs)
+
+    @torch.no_grad()
+    def prefill_fn(params, batch):
+        logits, cache = model_lib.prefill(params, cfg, batch,
+                                          attn_impl=attn_impl)
+        return logits, reshard_tree(cache, src, c_specs, shard_ctx.get())
+
+    return StepSetup(
+        name=f"{cfg.name}:{shape.name}", fn=prefill_fn, args=(params, batch),
+        in_shardings=(_layout_tree(p_specs, mesh),
+                      _layout_tree(b_specs, mesh)),
+        rules=rules, roles=("params", "batch"),
+        out_args=(_logits_layout(cfg, p_specs, b_entry, mesh),
+                  _layout_tree(c_specs, mesh)),
+        meta={"kind": "prefill", "cache_specs": c_specs})
+
+
+def build_decode_setup(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                       attn_impl: str = "full",
+                       param_dtype=torch.bfloat16) -> StepSetup:
+    """One decode step (JAX's ``build_decode_setup``): ``(params, cache,
+    token, pos) -> (logits [B, vocab], cache)``, the cache laid out as
+    ``sharding.cache_specs`` says and updated in place (donated), ``pos``
+    replicated.  The token's batch follows the cache's: over the data
+    axes where the cache's batch splits, else whole.  ``attn_impl``:
+    ``full`` (the counterpart of JAX's XLA decode attention) or
+    ``kernel`` (``ops.decode_attention``)."""
+    if attn_impl not in model_lib.ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {model_lib.ATTN_IMPLS}, "
+                         f"got {attn_impl!r}")
+    params, rules, p_specs, cache, c_specs = _serving_parts(
+        cfg, shape, mesh, param_dtype)
+    rules.cache_specs = c_specs
+    io = specs_lib.input_specs(cfg, shape)
+    dp = rules.dp_axes
+    n = sharding._size(mesh, dp)
+    t_spec = (sharding.batch_specs(shape.kind, {"t": io["token"]}, mesh,
+                                   dp)["t"]
+              if shape.global_batch % n == 0 and n > 1 else P())
+    b_entry = t_spec[0] if len(t_spec) else None
+
+    @torch.no_grad()
+    def decode_fn(params, cache, token, pos):
+        return model_lib.decode_step(params, cfg, cache, token, pos,
+                                     attn_impl=attn_impl)
+
+    whole = Layout.of(P(), mesh)
+    return StepSetup(
+        name=f"{cfg.name}:{shape.name}", fn=decode_fn,
+        args=(params, cache, io["token"], io["pos"]),
+        in_shardings=(_layout_tree(p_specs, mesh),
+                      _layout_tree(c_specs, mesh), Layout.of(t_spec, mesh),
+                      whole),
+        rules=rules, roles=("params", "cache", "batch", "scalar"),
+        donate=(1,), out_args=(_logits_layout(cfg, p_specs, b_entry, mesh),
+                               1),
+        meta={"kind": "decode", "attn_impl": attn_impl,
+              "cache_specs": c_specs})
+
+
 def build_setup(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 **kw) -> StepSetup:
     if shape.kind == "train":
         return build_train_setup(cfg, shape, mesh, **kw)
-    raise NotImplementedError(
-        f"{shape.kind} setups are not ported yet (ROADMAP queue A, item "
-        f"4a: slice 17, prefill / decode with the cross-rank softmax "
-        f"merge)")
+    if shape.kind == "prefill":
+        return build_prefill_setup(cfg, shape, mesh, **kw)
+    return build_decode_setup(cfg, shape, mesh, **kw)

@@ -166,14 +166,17 @@ def attention_chunked(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return torch.cat(outs, dim=1)                         # [B, Sq, H, hd]
 
 
-def decode_valid(pos_b, S, *, window=0, ring=False):
-    """[B, S] bool: which cache rows a one-token query at ``pos_b`` sees."""
-    idx = torch.arange(S, device=pos_b.device)[None, :]
+def decode_valid(pos_b, S, *, window=0, ring=False, offset=0, total=None):
+    """[B, S] bool: which cache rows a one-token query at ``pos_b`` sees.
+    A shard of a longer cache: its ``S`` rows are the whole cache's rows
+    ``offset ..`` of ``total`` (the masks are the whole cache's)."""
+    T = S if total is None else total
+    idx = offset + torch.arange(S, device=pos_b.device)[None, :]
     pb = pos_b.long()[:, None]
     if ring:
-        # slot i holds the token with absolute position p, p % S == i
-        age = torch.remainder(pb - idx, S)
-        valid = age < (window if window else S)
+        # slot i holds the token with absolute position p, p % T == i
+        age = torch.remainder(pb - idx, T)
+        valid = age < (window if window else T)
         valid &= pb >= age            # slot not yet written on early steps
     else:
         valid = idx <= pb
@@ -203,6 +206,31 @@ def attention_decode(q, k_cache, v_cache, cur_pos, *, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
     return o.reshape(B, q.shape[1], H, hd)
+
+
+def attention_decode_shard(q, k_cache, v_cache, cur_pos, *, offset, total,
+                           window=0, softcap=0.0, ring=False):
+    """``attention_decode`` over a shard of a longer cache (rows
+    ``offset ..`` of ``total``): ``(o [B,1,H,hd] f32, lse [B,H] f32)``,
+    the shard's normalized output and each head's log-sum-exp of its
+    scores, for a softmax merge across shards
+    (``shard_ctx.merge_softmax``).  Scores, masks and probabilities in
+    f32; a shard with no visible row gives o = 0 and lse = -inf."""
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[2]
+    qg = q.float().reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float())
+    s = s * (1.0 / math.sqrt(hd))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = decode_valid(cur_pos.expand(B), S, window=window, ring=ring,
+                         offset=offset, total=total)[:, None, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, -math.inf))
+    lse = torch.logsumexp(s, dim=-1)                      # [B, KV, G, 1]
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                  torch.zeros_like(lse))[..., None])
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return o.reshape(B, 1, H, hd), lse.reshape(B, H)
 
 
 def mlp_apply(params, x, mlp_type):

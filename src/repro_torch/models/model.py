@@ -68,7 +68,23 @@ paged KV and speculation are refused, as JAX's predicates refuse them.
 Whole-sequence prefill (``forward(mode="prefill")``, ``prefill``) fills
 a cache in ``init_cache``'s layout: each attention block's K/V rows, and
 each recurrent block's final state (RG-LRU ``{"h", "conv"}``, mLSTM
-``{"C", "n", "m"}``, sLSTM ``{"c", "n", "m", "h"}``).
+``{"C", "n", "m"}``, sLSTM ``{"c", "n", "m", "h"}``).  ``prefill``
+unembeds the last position only.
+
+Sharded decode (``launch.steps.build_decode_setup``): under a
+``shard_ctx`` whose rules carry ``cache_specs``, ``decode_step`` runs on
+this rank's cache shards as the specs lay them out.  Batch over the data
+axes and KV heads over the model axis need nothing more; where the
+cache's sequence dim is split, the rank whose rows hold a slot's write
+index writes its new row (every other rank's rows keep their bits), each
+rank attends over its rows with the whole cache's masks (the decode
+kernel's shard variant, or ``attention_decode_shard``) and
+``shard_ctx.softmax_merge`` combines the ranks' outputs; q (and the new
+K/V row) are all-gathered over the model axis first where the cache
+holds every KV head and the projections gave this rank only its own.  A
+recurrent or xLSTM state split on a feature dim, and an encoder's cross
+k/v split on its sequence, are all-gathered for the block, which then
+keeps its slice.
 """
 from __future__ import annotations
 
@@ -430,30 +446,99 @@ def _paged_decode_attend(cfg, q, k, v, cache, pos_b, page_table, active,
                                    softcap=cfg.attn_softcap)
 
 
-def _decode_attend(cfg, btype, q, k, v, cache, pos_b, active, attn_impl):
+def _decode_attend(cfg, btype, q, k, v, cache, pos_b, active, attn_impl,
+                   spec=None):
     """Write the new token's K/V row into the cache in place, then attend.
 
     Only slots with ``active[b]`` change: every slot's row at its write
     index is rewritten, inactive ones with their own old value, so their
-    rows stay bit-exact with no host sync and no whole-cache blend."""
+    rows stay bit-exact with no host sync and no whole-cache blend.
+
+    ``spec``: the spec of the K leaf ``[G, B, C, KV, hd]`` of a sharded
+    decode (``sharding.cache_specs``; None, or no context: the whole
+    cache).  Where its sequence dim is split, this rank holds rows
+    ``offset ..`` of the whole cache: it writes a slot's row only where
+    the write index falls in its rows, attends over them with the whole
+    cache's masks and merges with the other ranks
+    (``shard_ctx.softmax_merge``).  Where the cache holds every KV head
+    and this rank's projections only its own, q and the new K/V row are
+    all-gathered over the model axis first and o keeps its own heads."""
+    ctx = shard_ctx.get() if spec is not None else None
     ring = btype == BLOCK_LOCAL_ATTN
     window = cfg.window_size if ring else 0
     ck, cv = cache["k"], cache["v"]
     B, C = ck.shape[0], ck.shape[1]
-    slot = (torch.remainder(pos_b, C) if ring else pos_b).long()
+    seq = ctx.split_axes(spec[2]) if ctx is not None else ()
+    offset = ctx.coord(seq) * C if seq else 0
+    total = C * ctx.axis_size(seq) if seq else C
+    H_local = q.shape[2]
+    if ctx is not None and ck.shape[2] == cfg.num_kv_heads:
+        tp = ctx.tp_axis
+        if k.shape[2] < cfg.num_kv_heads:
+            k, v = (shard_ctx.all_gather(t.movedim(2, 0).contiguous(), tp,
+                                         "decode/kv_all_gather").movedim(0, 2)
+                    for t in (k, v))
+        if H_local < cfg.num_heads:
+            q = shard_ctx.all_gather(q.movedim(2, 0).contiguous(), tp,
+                                     "decode/q_all_gather").movedim(0, 2)
+    slot = (torch.remainder(pos_b, total) if ring else pos_b).long()
+    keep = None if active is None else ~active
+    if seq:
+        slot = slot - offset
+        mine = (slot >= 0) & (slot < C)
+        keep = ~mine if keep is None else keep | ~mine
+        slot = slot.clamp(0, C - 1)
     bidx = torch.arange(B, device=ck.device)
     nk, nv = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
-    if active is not None:
-        keep = ~active[:, None, None]
-        nk = torch.where(keep, ck[bidx, slot], nk)
-        nv = torch.where(keep, cv[bidx, slot], nv)
+    if keep is not None:
+        nk = torch.where(keep[:, None, None], ck[bidx, slot], nk)
+        nv = torch.where(keep[:, None, None], cv[bidx, slot], nv)
     ck[bidx, slot] = nk
     cv[bidx, slot] = nv
-    if attn_impl == "kernel":
-        return ops.decode_attention(q, ck, cv, pos_b, window=window,
-                                    softcap=cfg.attn_softcap, ring=ring)
-    return layers.attention_decode(q, ck, cv, pos_b, window=window,
-                                   softcap=cfg.attn_softcap, ring=ring)
+    kw = dict(window=window, softcap=cfg.attn_softcap, ring=ring)
+    if not seq:
+        if attn_impl == "kernel":
+            o = ops.decode_attention(q, ck, cv, pos_b, **kw)
+        else:
+            o = layers.attention_decode(q, ck, cv, pos_b, **kw)
+    else:
+        if attn_impl == "kernel":
+            o, lse = ops.decode_attention(q.float(), ck, cv, pos_b,
+                                          offset=offset, total=total,
+                                          return_lse=True, **kw)
+        else:
+            o, lse = layers.attention_decode_shard(
+                q, ck, cv, pos_b, offset=offset, total=total, **kw)
+        o, _ = shard_ctx.softmax_merge(o, lse, seq)
+        o = o.to(q.dtype)
+    if q.shape[2] != H_local:
+        o = o.narrow(2, ctx.coord(ctx.tp_axis) * H_local, H_local)
+    return o
+
+
+def _gather_split(tensors, specs, kind):
+    """Whole copies of one row's cache leaves (``{name: [B, ...]}``, row
+    ``g`` of leaves ``[G, B, ...]`` whose ``specs`` split a dim past the
+    batch) and, per gathered name, ``(dim, index, size)`` of this rank's
+    slice (``_scatter_split`` writes it back)."""
+    ctx = shard_ctx.get()
+    out, cuts = dict(tensors), {}
+    for name, t in tensors.items():
+        for d, entry in enumerate(specs[name]):
+            axes = ctx.split_axes(entry)
+            if d < 2 or not axes:
+                continue
+            out[name] = shard_ctx.all_gather(
+                t.movedim(d - 1, 0).contiguous(), axes, kind).movedim(0, d - 1)
+            cuts[name] = (d - 1, ctx.coord(axes), t.shape[d - 1])
+    return out, cuts
+
+
+def _scatter_split(local, full, cuts):
+    """Copy this rank's slices of the updated whole leaves back into its
+    local cache rows (``_gather_split``'s ``cuts``)."""
+    for name, (d, i, size) in cuts.items():
+        local[name].copy_(full[name].narrow(d, i * size, size))
 
 
 class PrefillRows:
@@ -662,7 +747,7 @@ def _prefill_rows(cfg, btype, k, v):
 
 def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
                  pos=None, attn_impl="full", active=None, page_table=None,
-                 xkv=None):
+                 xkv=None, spec=None):
     """One block: ``(x, aux)``, ``aux`` the MoE router's aux loss (None
     for other blocks).  ``mode``: ``train`` (full sequence, no cache),
     ``prefill`` (``train``'s attention, the block's K/V rows written into
@@ -670,7 +755,8 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     index; paged pools go through ``page_table`` [B, NP] on the device)
     or ``prefill_slots`` (``pos`` = the chunk's ``PrefillRows``;
     attention blocks only).  ``xkv``: an encoder-decoder row's cross k/v,
-    attended after self-attention."""
+    attended after self-attention.  ``spec``: the decode cache's spec of
+    this block's K leaf under a sharded decode (see ``_decode_attend``)."""
     if btype == BLOCK_RECURRENT:
         return _recurrent_block_apply(cfg, params, x, mode=mode,
                                       cache=cache, active=active), None
@@ -680,16 +766,21 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     window = cfg.window_size if btype == BLOCK_LOCAL_ATTN else 0
     h = layers.rms_norm(params["ln1"], x, cfg.norm_eps)
     B, S, D = h.shape
-    q, k, v, tp_heads = _qkv(cfg, params["attn"], h)
+    q, k, v, tp_heads, kv_idx = _qkv(cfg, params["attn"], h, mode)
     H, hd = q.shape[2], cfg.resolved_head_dim
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if kv_idx is not None and mode != "prefill" and (
+            mode != "decode" or spec is None or "pk" in cache):
+        raise NotImplementedError(
+            f"{mode} with K/V heads that do not divide the model axis "
+            f"needs a sharded decode cache (launch.steps.build_setup)")
     if mode == "decode" and "pk" in cache:
         o = _paged_decode_attend(cfg, q, k, v, cache, pos, page_table,
                                  active, attn_impl)
     elif mode == "decode":
         o = _decode_attend(cfg, btype, q, k, v, cache, pos, active,
-                           attn_impl)
+                           attn_impl, spec=spec)
     elif mode == "prefill_slots":
         o = _prefill_attend(cfg, btype, q, k, v, cache, positions, pos)
     elif mode in ("train", "prefill"):
@@ -697,7 +788,9 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
         attend = (layers.attention_chunked
                   if attn_impl == "chunked" and S > 2048
                   else layers.attention_full)
-        o = attend(q, k, v, positions, positions, causal=True,
+        ka, va = (k, v) if kv_idx is None else (k.index_select(2, kv_idx),
+                                                v.index_select(2, kv_idx))
+        o = attend(q, ka, va, positions, positions, causal=True,
                    window=window, softcap=cfg.attn_softcap)
         if mode == "prefill":
             cache.update(_prefill_rows(cfg, btype, k, v))
@@ -727,9 +820,11 @@ def _block_apply(cfg, btype, params, x, *, positions, mode, cache=None,
     return x, None
 
 
-def _qkv(cfg, attn, h):
+def _qkv(cfg, attn, h, mode="train"):
     """The block's q [B,S,H,hd] and k / v [B,S,KV,hd] from the normed
-    residual, and whether the heads are split over the model axis.
+    residual, whether the heads are split over the model axis, and the
+    K/V head of each local query head (None, or an index over the K/V
+    heads for the caller to take outside ``train`` mode).
 
     Under tensor parallelism the projections are this rank's column
     shards (the local head counts come from their widths), ``h`` passes
@@ -737,7 +832,9 @@ def _qkv(cfg, attn, h):
     query heads divide the model axis and the K/V heads do not, K/V stay
     replicated: each rank takes the K/V head of each of its query heads
     (query head i reads K/V head i // (H / KV)), and the replicated
-    weights' partial gradients are summed over the model group."""
+    weights' partial gradients are summed over the model group.  In
+    ``train`` mode the heads are taken here; the other modes keep every
+    K/V head for the cache and get the index back."""
     B, S, _ = h.shape
     hd = cfg.resolved_head_dim
     wq, wk, wv = attn["wq"], attn["wk"], attn["wv"]
@@ -752,13 +849,15 @@ def _qkv(cfg, attn, h):
     q = (h @ wq.to(h.dtype)).reshape(B, S, H, hd)
     k = (h @ wk.to(h.dtype)).reshape(B, S, -1, hd)
     v = (h @ wv.to(h.dtype)).reshape(B, S, -1, hd)
+    idx = None
     if kv_whole:
         group = cfg.num_heads // cfg.num_kv_heads
         first = shard_ctx.tp_rank() * H
         idx = torch.tensor([(first + i) // group for i in range(H)],
                            device=h.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    return q, k, v, tp
+        if mode == "train":
+            k, v, idx = k.index_select(2, idx), v.index_select(2, idx), None
+    return q, k, v, tp, idx
 
 
 def _resolve_overlay(bp, g, ov):
@@ -796,6 +895,9 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
     ``jax.checkpoint``)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = shard_ctx.get()
+    specs = (ctx.cache_specs if mode == "decode" and ctx is not None
+             else None)
     for si, (pattern, groups) in enumerate(cfg.stages()):
         sp = stage_params[si]
         filled = {f"pos{j}": [] for j in range(len(pattern))}
@@ -805,19 +907,32 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                 ov = (overlay or {}).get(f"s{si}/pos{j}")
                 if ov is not None:
                     bp = _resolve_overlay(bp, g, ov)
-                cj = None
+                cj, local, cuts, spec = None, None, {}, None
                 if mode == "prefill":
                     cj = {}
                     filled[f"pos{j}"].append(cj)
                 elif caches is not None:
                     cj = {n: a[g] for n, a in caches[si][f"pos{j}"].items()}
+                if specs is not None:
+                    sj = specs["stages"][si][f"pos{j}"]
+                    if btype in ATTN_BLOCKS:
+                        spec = sj["k"]
+                    else:       # a recurrent state split on a feature dim
+                        local = cj
+                        cj, cuts = _gather_split(cj, sj,
+                                                 "decode/state_all_gather")
                 xkv = None
                 if cross_kv is not None and btype in ATTN_BLOCKS:
-                    xkv = tuple(cross_kv[si][f"pos{j}"][n][g]
-                                for n in ("k", "v"))
+                    xkv = {n: cross_kv[si][f"pos{j}"][n][g]
+                           for n in ("k", "v")}
+                    if specs is not None:
+                        xkv, _ = _gather_split(
+                            xkv, specs["cross_kv"][si][f"pos{j}"],
+                            "decode/cross_kv_all_gather")
+                    xkv = (xkv["k"], xkv["v"])
                 kw = dict(positions=positions, mode=mode, cache=cj, pos=pos,
                           attn_impl=attn_impl, active=active,
-                          page_table=page_table, xkv=xkv)
+                          page_table=page_table, xkv=xkv, spec=spec)
                 if remat:
                     x, aux = torch.utils.checkpoint.checkpoint(
                         lambda h, bp=bp, btype=btype, kw=kw: _block_apply(
@@ -825,6 +940,8 @@ def _stack_apply(cfg, stage_params, x, *, positions, mode, caches=None,
                         use_reentrant=False)
                 else:
                     x, aux = _block_apply(cfg, btype, bp, x, **kw)
+                if cuts:
+                    _scatter_split(local, cj, cuts)
                 if aux is not None:
                     aux_total = aux_total + aux
         if mode == "prefill":
@@ -1044,12 +1161,19 @@ def prefill(params, cfg: ModelConfig, batch, *, attn_impl="chunked"):
     """Whole-sequence prefill: ``(logits [B, vocab] at the last position,
     cache)`` (JAX's ``prefill``; the route to a filled ``cross_kv`` and,
     for a VLM, to decoding after the patches).  ``batch``: ``tokens`` and
-    the optional ``frames`` / ``patch_embeds``."""
-    logits, cache = forward(params, cfg, batch["tokens"],
-                            frames=batch.get("frames"),
-                            patch_embeds=batch.get("patch_embeds"),
-                            mode="prefill", attn_impl=attn_impl)
-    return logits[:, -1], cache
+    the optional ``frames`` / ``patch_embeds``.  Only the last position
+    is unembedded (JAX unembeds every position and keeps the last): a
+    [B, S, vocab] logits tensor is never made."""
+    caches = [{} for _ in cfg.stages()]
+    hidden, _, cross_kv = _hidden(params, cfg, batch["tokens"],
+                                  attn_impl=attn_impl,
+                                  frames=batch.get("frames"),
+                                  patch_embeds=batch.get("patch_embeds"),
+                                  mode="prefill", caches=caches)
+    cache = {"stages": caches}
+    if cross_kv is not None:
+        cache["cross_kv"] = cross_kv
+    return _unembed(params, cfg, hidden[:, -1:])[:, 0], cache
 
 
 def _labels_mask(batch):

@@ -114,15 +114,19 @@ def placements(spec: P, mesh) -> tuple:
 class ShardRules:
     """A mesh, the data-parallel axes and the tensor-parallel axis.
     ``tp_leaves``: names of the parameter leaves the model axis shards
-    (for the norms BlockLLM's selection reads).  JAX's other fields have
-    no counterpart: its named activation rules are GSPMD layout hints,
-    which the port's local shards already follow (``constrain`` acts on
-    ``block_in`` and ``residual`` only), and its ``moe_shard_map`` picks
-    between two MoE lowerings where the port has one."""
+    (for the norms BlockLLM's selection reads).  ``cache_specs``: the
+    decode cache's specs (``sharding.cache_specs``, a tree shaped as the
+    cache) where a decode step runs on local cache shards.  JAX's other
+    fields have no counterpart: its named activation rules are GSPMD
+    layout hints, which the port's local shards already follow
+    (``constrain`` acts on ``block_in`` and ``residual`` only), and its
+    ``moe_shard_map`` picks between two MoE lowerings where the port has
+    one."""
     mesh: Any
     dp_axes: Tuple[str, ...] = ("data",)
     tp_axis: str = "model"
     tp_leaves: frozenset = frozenset()
+    cache_specs: Any = None
     _groups: Dict = field(default_factory=dict, repr=False)
 
     def axis_size(self, axes) -> int:
@@ -172,6 +176,13 @@ class ShardRules:
 
     def tp_sharded(self, name: str) -> bool:
         return name in self.tp_leaves
+
+    def split_axes(self, entry) -> Tuple[str, ...]:
+        """The axes of one spec entry that split it here (size above 1),
+        in mesh order, the order ``StepSetup.shard`` cuts them in."""
+        names = list(mesh_shape(self.mesh))
+        return tuple(sorted((a for a in _axes(entry)
+                             if self.axis_size(a) > 1), key=names.index))
 
 
 _CTX: Optional[ShardRules] = None
@@ -262,6 +273,43 @@ def reduce_scatter(x: torch.Tensor, axes, kind: str) -> torch.Tensor:
     _count(kind, x.numel() * x.element_size())
     dist.reduce_scatter_tensor(out, x, group=ctx.group(axes))
     return out
+
+
+def merge_softmax(o: torch.Tensor, lse: torch.Tensor):
+    """Merge per-shard attention outputs into the whole cache's: ``o``
+    [n, ...rows, H, hd] f32 (each shard's normalized output) and ``lse``
+    [n, ...rows, H] f32 (each head's log-sum-exp over its shard) give
+    ``(o, lse)`` with lse = logsumexp over the shards and o = sum_r
+    exp(lse_r - lse) o_r, the shards taken in order.  A shard with lse
+    -inf (no visible row) contributes nothing; where every shard has
+    none, o = 0 and lse = -inf."""
+    m = lse.amax(0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)                              # [n, ..., H]
+    den = w.sum(0)
+    num = (w[..., None] * o).sum(0)
+    out = num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+    return out, m + torch.log(den)
+
+
+def softmax_merge(o: torch.Tensor, lse: torch.Tensor, axes,
+                  kind: str = "decode/all_gather"):
+    """The cross-rank softmax merge of a decode step whose cache
+    sequence is split over ``axes``: this rank's ``o`` [B, 1, H, hd] and
+    ``lse`` [B, H] (f32) are all-gathered over ``axes`` as one [B, H,
+    hd + 1] f32 tensor (B * H * (hd + 1) * 4 bytes a rank) and merged in
+    rank order (``merge_softmax``), so every rank computes the same
+    bits.  Returns the merged ``(o, lse)``."""
+    ctx = _CTX
+    n = ctx.axis_size(axes)
+    if n == 1:
+        return o, lse
+    B, _, H, hd = o.shape
+    packed = torch.cat([o.float().reshape(B, H, hd),
+                        lse.float().reshape(B, H, 1)], dim=-1)
+    full = all_gather(packed[None], axes, kind)        # [n, B, H, hd + 1]
+    out, lse = merge_softmax(full[..., :hd], full[..., hd])
+    return out.reshape(B, 1, H, hd), lse
 
 
 class _CopyToModel(torch.autograd.Function):

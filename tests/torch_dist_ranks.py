@@ -317,6 +317,62 @@ def compressed(scenario):
          codes=q.numpy(), scales=s.numpy(), counts=json.dumps(counts))
 
 
+def _tree_from(prefix: str, like):
+    """A tree shaped as ``like`` whose leaves the test saved by name
+    under ``prefix``."""
+    names, _, td = _flatten_with_names(like)
+    return td.unflatten([tensor(f"{prefix}/{n}") for n in names])
+
+
+def serving(scenario):
+    """The prefill and decode setups (``launch.steps.build_setup``) of
+    the test's cases (``serving.json``): each case's setup from the
+    port's seeded weights and the test's batch or cache, token and
+    position, run once; the gathered logits and cache, the collective
+    counts, or the ``NotImplementedError`` of the build.  Rank 0 writes
+    the arrays, every rank their digest."""
+    cases = json.load(open(os.path.join(IO, "serving.json")))
+    res, arrays = {}, {}
+    for c in cases:
+        key, cfg = c["key"], cfg_of(c["cfg"])
+        mesh = mesh_lib.make_host_mesh(c["mesh"][1], device_type="cpu")
+        shape = ShapeConfig(key, seq_len=c["S"], global_batch=c["B"],
+                            kind=c["kind"])
+        params = params_of(c["cfg"], cfg)
+        try:
+            if c["kind"] == "decode":
+                setup = steps.build_decode_setup(
+                    cfg, shape, mesh, attn_impl=c["impl"],
+                    param_dtype=torch.float32)
+                like = model.init_cache(cfg, c["B"], c["S"], torch.float32,
+                                        device="meta")
+                args = (params, _tree_from(f"{key}/cache", like),
+                        tensor(f"{key}/token"),
+                        torch.tensor(c["pos"], dtype=torch.int32))
+            else:
+                setup = steps.build_prefill_setup(cfg, shape, mesh,
+                                                  param_dtype=torch.float32)
+                args = (params, {k: tensor(f"{key}/batch/{k}")
+                                 for k in setup.args[1]})
+        except NotImplementedError as e:
+            res[key] = {"error": str(e)}
+            continue
+        shard_ctx.reset_collectives()
+        out = setup(*setup.shard(args))
+        counts = {k: list(v) for k, v in shard_ctx.COLLECTIVES.items()}
+        logits, cache = setup.gather(out)
+        arrays[f"{key}|logits"] = logits.numpy()
+        names, leaves, _ = _flatten_with_names(cache)
+        arrays.update({f"{key}|cache|{n}": t.numpy()
+                       for n, t in zip(names, leaves)})
+        res[key] = {"counts": counts}
+    digest = hashlib.sha256()
+    for k in sorted(arrays):
+        digest.update(k.encode() + arrays[k].tobytes())
+    save(scenario, result=json.dumps(res), digest=digest.hexdigest(),
+         **(arrays if RANK == 0 else {}))
+
+
 SCENARIOS = {
     "blockllm_2x2": lambda s: blockllm(s, (2, 2)),
     "blockllm_4x1": lambda s: blockllm(s, (4, 1)),
@@ -329,6 +385,7 @@ SCENARIOS = {
     "xlstm": xlstm,
     "moe_island": moe_island,
     "compressed": compressed,
+    "serving": serving,
 }
 
 
